@@ -1,0 +1,61 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card (marker `cuda`; skipped without one). Imports no JAX, so it runs on a
+machine with a card and no JAX:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Both kernels are exact (f32 min/max/sub; integer popcounts): `torch.equal`.
+"""
+import numpy as np
+import pytest
+import torch
+
+from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, matcher
+from orbslam3lib_tpu_torch.ops.extractor import DETECT_MARGIN
+from orbslam3lib_tpu_torch.ops.pyramid import REF_HEIGHTS, REF_WIDTHS
+
+PALLAS_CASES = [(400, 640, 21), (80, 128, 21), (100, 161, 21), (64, 128, 3)]
+LEVEL_CASES = [(h, w, DETECT_MARGIN) for h, w in zip(REF_HEIGHTS, REF_WIDTHS)]
+
+
+def _bits(rng, na, nb, masked):
+    a = (rng.random((na, 256)) < 0.5).astype(np.int8)
+    b = (rng.random((nb, 256)) < 0.5).astype(np.int8)
+    av = rng.random(na) < 0.9 if masked else None
+    bv = rng.random(nb) < 0.9 if masked else None
+    return a, b, av, bv
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,margin", PALLAS_CASES + LEVEL_CASES)
+def test_fast_kernel_matches_plain_on_card(cuda_device, h, w, margin):
+    g = torch.Generator().manual_seed(h + w)
+    img = torch.randint(0, 256, (2, h, w), generator=g, dtype=torch.uint8).to(cuda_device)
+    before = cuda_fast.launches
+    got = cuda_fast.fast_scores_nms(img, margin)
+    torch.cuda.synchronize()
+    assert cuda_fast.launches == before + 1
+    assert torch.equal(got, cuda_fast.fast_scores_nms_plain(img, margin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,nb,masked", [(64, 64, True), (300, 450, True),
+                                          (512, 1024, True), (100, 200, False),
+                                          (512, 512, True), (1, 1, True),
+                                          (33, 3000, True)])
+def test_knn_kernel_matches_plain_on_card(cuda_device, na, nb, masked):
+    a, b, av, bv = (None if x is None else torch.from_numpy(x).to(cuda_device)
+                    for x in _bits(np.random.default_rng(na + nb), na, nb, masked))
+    before = cuda_matcher.launches
+    got = cuda_matcher.knn_match_fused(a, b, av, bv)
+    torch.cuda.synchronize()
+    assert cuda_matcher.launches == before + 1
+    for g, w in zip(got, matcher.knn_match(a, b, av, bv)):
+        assert torch.equal(g, w)

@@ -1,0 +1,90 @@
+"""Where the time of the PyTorch port's stereo tracking slice goes, on one
+CUDA card.
+
+    python3 tools/profile_torch_slice.py [--out FILE]
+
+Renders bench.py's orbit sequence (its world and 640x400 rig), drives
+`Tracker.process_frame` over it with bench.py's tracking configuration (as
+chip_smoke.py does, without its jolt), and after WARM frames:
+  * times STEADY frames on the host clock, synchronised per frame, with the
+    profiler off (ms per frame);
+  * profiles the next STEADY frames with torch.profiler: device busy time
+    per frame (the sum of CUDA kernel and copy events, each counted once),
+    the device's idle share against the un-profiled frame time, device
+    events and cudaLaunchKernel calls per frame, and the tables of
+    key_averages() by device and by host time.
+The summary line goes to stdout; the tables to --out (default: stdout).
+"""
+import argparse
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+WARM, STEADY = 30, 15
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="file for the profiler tables")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    from orbslam3lib_tpu_torch.device import card_line
+    from orbslam3lib_tpu_torch.io.synthetic import (orbit_tracking_config,
+                                                    render_orbit_sequence)
+    from orbslam3lib_tpu_torch.tracking.tracker import Tracker
+
+    dev = torch.device("cuda:0")
+    imgs, ts, rig = render_orbit_sequence(WARM + 2 * STEADY)
+    tr = Tracker(orbit_tracking_config(rig), "stereo", device=dev)
+    for i in range(WARM):
+        tr.process_frame(imgs[i], float(ts[i]))
+    torch.cuda.synchronize()
+
+    frame_ms = []
+    for i in range(WARM, WARM + STEADY):
+        t0 = time.perf_counter()
+        tr.process_frame(imgs[i], float(ts[i]))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(frame_ms))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(WARM + STEADY, WARM + 2 * STEADY):
+            tr.process_frame(imgs[i], float(ts[i]))
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    # device events only: the aten ops that launched them carry the same
+    # device time again
+    on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 / STEADY
+    n_dev = sum(e.count for e in on_dev) / STEADY
+    n_launch = sum(e.count for e in ka if e.key == "cudaLaunchKernel") / STEADY
+
+    print(card_line())
+    print(f"un-profiled {wall_ms:.3f} ms/frame (median of {STEADY}); device busy "
+          f"{busy_ms:.3f} ms/frame; idle share {1.0 - busy_ms / wall_ms:.3f}; "
+          f"device events {n_dev:.0f}/frame; cudaLaunchKernel {n_launch:.0f}/frame; "
+          f"stats {tr.stats}")
+    tables = (ka.table(sort_by="self_device_time_total", row_limit=30,
+                       max_name_column_width=60) + "\n"
+              + ka.table(sort_by="self_cpu_time_total", row_limit=30,
+                         max_name_column_width=60))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(tables)
+    else:
+        print(tables)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
