@@ -1,18 +1,99 @@
-"""Map-level bundle adjustment (port of `orbslam3lib_tpu/mapping/map_ba.py`).
+"""Map-level bundle adjustment: the keyframe-window gather and scatter
+around `local_ba.bundle_adjust` (port of
+`orbslam3lib_tpu/mapping/map_ba.py:28-109`).
 
-Only `inv_sigma2` is ported so far: the pose solve of stereo tracking needs
-it. The window and global BA come with the mapper chain.
+`global_bundle_adjust` and `merge_gba_result` come with the loop leg.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.pyramid import scale_factors
+from ..models import map_state as ms
+from ..ops.fast import topk_stable
+from ..ops.pyramid import scale_factors_on
+from .local_ba import BAProblem, bundle_adjust
 
 
 def inv_sigma2(level: torch.Tensor, n_levels: int = 8) -> torch.Tensor:
     """Per-observation information 1/scale^2 (the reference's
     mvInvLevelSigma2, Frame.cc)."""
-    sf = torch.from_numpy(scale_factors(n_levels)).to(level.device)
+    sf = scale_factors_on(n_levels, level.device)
     s = sf[torch.clamp(level, 0, n_levels - 1).long()]
     return 1.0 / (s * s)
+
+
+def _gather_window_problem(m: ms.MapState, window_ids, fixed_mask, bf: float,
+                           n_ba_points: int):
+    """The fixed-shape BA problem over a keyframe window. Returns (prob, ids,
+    sel_ids, cam_ok, pt_ok); the last four drive the scatter."""
+    C = window_ids.shape[0]
+    F = m.n_feat
+    P = m.max_mp
+    dev = window_ids.device
+    ids = torch.clamp(window_ids, 0, m.max_kf - 1).long()
+    cam_ok = (window_ids >= 0) & m.kf_valid[ids]
+
+    kf_mp_w = torch.where(cam_ok[:, None] & m.kf_feat_valid[ids], m.kf_mp[ids], -1)
+    flat = kf_mp_w.reshape(-1)
+    # flag the observed landmarks and keep up to n_ba_points of them, the
+    # lowest ids first (lax.top_k's order among equal flags)
+    flag = torch.zeros(P, device=dev).scatter_reduce(
+        0, torch.clamp(flat, 0, P - 1).long(), (flat >= 0).to(torch.float32),
+        reduce="amax")
+    flag = flag * m.mp_valid.to(torch.float32)
+    sel_flag, sel_ids = topk_stable(flag, n_ba_points)
+    pt_ok = sel_flag > 0
+    inv = torch.full((P,), -1, dtype=torch.int64, device=dev)
+    inv[sel_ids] = torch.arange(n_ba_points, device=dev)
+
+    e_pt = inv[torch.clamp(flat, 0, P - 1).long()]
+    e_valid = (flat >= 0) & (e_pt >= 0)
+    e_cam = torch.arange(C, device=dev).repeat_interleave(F)
+    e_uv = m.kf_xy[ids].reshape(-1, 2)
+    e_level = m.kf_level[ids].reshape(-1)
+    e_depth = m.kf_depth[ids].reshape(-1)
+    e_stereo = e_depth > 0.05
+    z_safe = torch.clamp(e_depth, min=0.05)
+    e_u_right = torch.where(e_stereo, e_uv[:, 0] - bf / z_safe, torch.zeros_like(z_safe))
+
+    prob = BAProblem(
+        cam_R=m.kf_R[ids], cam_t=m.kf_t[ids],
+        cam_fixed=fixed_mask | ~cam_ok, cam_valid=cam_ok,
+        points=m.mp_pos[sel_ids], pt_valid=pt_ok,
+        e_cam=e_cam, e_pt=torch.where(e_valid, e_pt, 0),
+        # 8 levels as the reference writes it (map_ba.py:76), whatever the
+        # configured pyramid depth
+        e_uv=e_uv, e_inv_sigma2=inv_sigma2(e_level, 8),
+        e_u_right=e_u_right, e_stereo=e_stereo, e_valid=e_valid,
+    )
+    return prob, ids, sel_ids, cam_ok, pt_ok
+
+
+def _scatter_window_result(m: ms.MapState, cam_R, cam_t, points, ids, sel_ids,
+                           cam_ok, pt_ok, fixed_mask) -> ms.MapState:
+    """Write the optimised cameras (valid, non-fixed) and points back, in
+    place. Only updated cameras are written: empty window slots alias
+    keyframe 0, so writing every slot would race on it."""
+    K = m.max_kf
+    tgt = torch.where(cam_ok & ~fixed_mask, ids, K)
+    for name, val in (("kf_R", cam_R), ("kf_t", cam_t)):
+        arr = getattr(m, name)
+        buf = torch.cat([arr, arr[:1]])
+        buf[tgt] = val
+        arr.copy_(buf[:K])
+    m.mp_pos[sel_ids] = torch.where(pt_ok[:, None], points, m.mp_pos[sel_ids])
+    return m
+
+
+def map_window_ba(m: ms.MapState, window_ids, fixed_mask, cam_params, bf: float,
+                  cam_model: int, n_ba_points: int, n_iters: int) -> ms.MapState:
+    """Gather a BA problem over a keyframe window, solve, and scatter the
+    result back into `m` (in place). window_ids (C,) int (-1 = empty slot),
+    fixed_mask (C,) bool. Reference: LocalBundleAdjustment (Optimizer.cc:1124),
+    window keyframes optimisable, anchors fixed, all their landmarks free."""
+    prob, ids, sel_ids, cam_ok, pt_ok = _gather_window_problem(
+        m, window_ids, fixed_mask, bf, n_ba_points)
+    cam_R, cam_t, points, _ = bundle_adjust(prob, cam_params, cam_model=cam_model,
+                                            bf=bf, n_iters=n_iters)
+    return _scatter_window_result(m, cam_R, cam_t, points, ids, sel_ids,
+                                  cam_ok, pt_ok, fixed_mask)

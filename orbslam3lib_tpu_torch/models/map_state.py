@@ -1,5 +1,6 @@
 """Tensor map model: keyframes + landmarks as fixed-capacity struct-of-arrays
-(port of `orbslam3lib_tpu/models/map_state.py:31-243`).
+(port of `orbslam3lib_tpu/models/map_state.py:31-253`; `compact_map` is not
+ported yet).
 
 Same fields, shapes and dtypes as the JAX `MapState`, so `from_numpy` /
 `to_numpy` carry a map between the packages unchanged: it is the system's
@@ -133,6 +134,18 @@ def observation_matrix(m: MapState) -> torch.Tensor:
     return O[:K * P].reshape(K, P).clamp(0.0, 1.0)
 
 
+def covisibility(m: MapState) -> torch.Tensor:
+    """(K, K) shared-observation counts, KeyFrame::UpdateConnections'
+    covisibility weights: O @ O^T."""
+    O = observation_matrix(m)
+    return O @ O.T
+
+
+def mp_observation_count(m: MapState) -> torch.Tensor:
+    """(P,) int32 number of keyframes observing each landmark."""
+    return observation_matrix(m).sum(dim=0).to(torch.int32)
+
+
 def insert_keyframe(m: MapState, R, t, ts, xy, level, desc, feat_valid,
                     mp_assoc, depth, v=None, bg=None, ba=None, angle=None):
     """Write a keyframe into slot n_kf and register its observations, in
@@ -149,7 +162,7 @@ def insert_keyframe(m: MapState, R, t, ts, xy, level, desc, feat_valid,
     assoc_eff = torch.where(feat_valid, mp_assoc, -1)
     tgt = torch.where(assoc_eff >= 0, assoc_eff, m.max_mp).long()
     obs_mask = torch.zeros(m.max_mp + 1, device=dev)
-    obs_mask[tgt] = 1.0
+    obs_mask.index_fill_(0, tgt, 1.0)
     w = observation_matrix(m) @ obs_mask[:m.max_mp]
     w = w * m.kf_valid * (torch.arange(m.max_kf, device=dev) < k)
     parent = torch.where(torch.amax(w) > 0, torch.argmax(w), -1)
@@ -173,10 +186,21 @@ def insert_keyframe(m: MapState, R, t, ts, xy, level, desc, feat_valid,
     return m, k
 
 
-def spawn_mappoints(m: MapState, kf_id: int, p_world, desc, normal, min_dist,
+def row(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """x[k] for a 0-d index tensor, gathered on the device (no host read)."""
+    return x.index_select(0, k.reshape(1).long())[0]
+
+
+def set_row(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """x[k] = v for a 0-d index tensor, written on the device."""
+    x.index_copy_(0, k.reshape(1).long(), v[None])
+
+
+def spawn_mappoints(m: MapState, kf_id, p_world, desc, normal, min_dist,
                     max_dist, want, feat_slot) -> MapState:
     """Allocate landmarks for the `want`-masked candidates (all (F,)) and bind
-    them to keyframe `kf_id`'s feature slots `feat_slot`, in place.
+    them to keyframe `kf_id`'s feature slots `feat_slot`, in place. kf_id is
+    an int or a 0-d tensor; nothing is read back to the host.
 
     Slots come from the free pool, lowest free index first, so culled slots
     are recycled; candidates beyond the free capacity are dropped. Fresh
@@ -186,23 +210,32 @@ def spawn_mappoints(m: MapState, kf_id: int, p_world, desc, normal, min_dist,
     F = want.shape[0]
     P = m.max_mp
     dev = want.device
+    if not isinstance(kf_id, torch.Tensor):
+        kf_id = torch.full((), kf_id, dtype=torch.int32, device=dev)
     free_score = torch.where(m.mp_valid, -1.0,
                              (P - torch.arange(P, device=dev)).to(torch.float32))
     slots = torch.sort(free_score, descending=True, stable=True).indices[:F]
     slot_free = ~m.mp_valid[slots]
     ranks = torch.clamp(torch.cumsum(want.to(torch.int32), 0) - 1, 0, F - 1)
     ids = slots[ranks]
-    sel = torch.nonzero(want & slot_free[ranks]).squeeze(1)
-    dst = ids[sel]
-    m.mp_pos[dst] = p_world[sel]
-    m.mp_valid[dst] = True
-    m.mp_desc[dst] = desc[sel]
-    m.mp_normal[dst] = normal[sel]
-    m.mp_min_dist[dst] = min_dist[sel]
-    m.mp_max_dist[dst] = max_dist[sel]
-    m.mp_first_kf[dst] = kf_id
-    m.mp_found[dst] = 1.0
-    m.mp_visible[dst] = 1.0
-    m.n_mp.copy_(m.mp_valid.sum())
-    m.kf_mp[kf_id, feat_slot[sel]] = dst.to(torch.int32)
+    ok = want & slot_free[ranks]
+    # landmark slot -> its candidate (the ok slots are distinct; the rest
+    # land on the dropped slot P)
+    src = torch.full((P + 1,), -1, dtype=torch.int64, device=dev).scatter_(
+        0, torch.where(ok, ids, P), torch.arange(F, device=dev))[:P]
+    new = src >= 0
+    s = torch.clamp(src, min=0)
+    m.mp_pos = torch.where(new[:, None], p_world[s], m.mp_pos)
+    m.mp_valid = m.mp_valid | new
+    m.mp_desc = torch.where(new[:, None], desc[s], m.mp_desc)
+    m.mp_normal = torch.where(new[:, None], normal[s], m.mp_normal)
+    m.mp_min_dist = torch.where(new, min_dist[s], m.mp_min_dist)
+    m.mp_max_dist = torch.where(new, max_dist[s], m.mp_max_dist)
+    m.mp_first_kf = torch.where(new, kf_id.to(torch.int32), m.mp_first_kf)
+    m.mp_found = torch.where(new, 1.0, m.mp_found)
+    m.mp_visible = torch.where(new, 1.0, m.mp_visible)
+    m.n_mp = m.mp_valid.sum(dtype=torch.int32)
+    r = row(m.kf_mp, kf_id)
+    r[feat_slot] = torch.where(ok, ids.to(torch.int32), r[feat_slot])
+    set_row(m.kf_mp, kf_id, r)
     return m

@@ -69,7 +69,7 @@ def extract_orb_stereo(img_pair: torch.Tensor, threshold: float,
     nb, h0, w0 = img_pair.shape
     dev = img_pair.device
     levels = pyramid.build_pyramid(img_pair, n_levels)
-    scales = torch.from_numpy(pyramid.scale_factors(n_levels)).to(dev)
+    scales = pyramid.scale_factors_on(n_levels, dev)
 
     cand_s, cand_y, cand_x, cand_l = [], [], [], []
     for lvl, img_l in enumerate(levels):

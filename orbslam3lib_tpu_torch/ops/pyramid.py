@@ -40,6 +40,13 @@ def scale_factors(n_levels: int = N_LEVELS) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+def scale_factors_on(n_levels: int, device: torch.device) -> torch.Tensor:
+    """`scale_factors` as a tensor on `device`, made once per device: a copy
+    from the host on every call would wait for the card's queue."""
+    return torch.from_numpy(scale_factors(n_levels)).to(device)
+
+
+@lru_cache(maxsize=None)
 def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     """Dense (n_out, n_in) bilinear interpolation matrix, pixel-centre
     convention (align-corners=False)."""

@@ -21,7 +21,7 @@ from ..ops.fast import topk_stable
 from ..ops.masks import BIG, is_finite_match, leq_int, penalize, step01
 from ..ops.matcher import hamming_matrix
 from ..ops.orient_brief import gather_patches
-from ..ops.pyramid import level_shapes, scale_factors
+from ..ops.pyramid import level_shapes, scale_factors_on
 from ..utils import cameras, lie
 
 TH_HIGH = 100.0
@@ -39,7 +39,7 @@ class ProjMatches(NamedTuple):
 
 
 def _scales(n_levels: int, device) -> torch.Tensor:
-    return torch.from_numpy(scale_factors(n_levels)).to(device)
+    return scale_factors_on(n_levels, device)
 
 
 def _one_to_one(dm: torch.Tensor) -> torch.Tensor:
@@ -235,17 +235,21 @@ def refine_stereo_sad(canvas_l, canvas_r, xy_l, level_l, valid_l, u_r, depth,
 def rotation_consistency(angle_a, angle_b_matched, ok):
     """ORBmatcher's rotation-consistency histogram (ComputeThreeMaxima): keep
     only matches whose orientation delta falls in the three strongest of
-    HISTO_LENGTH bins (bins below 0.1x the best are dropped)."""
+    HISTO_LENGTH bins (bins below 0.1x the best are dropped). Batched over
+    leading dims: each row of the last dim has its own histogram."""
     two_pi = 2.0 * np.pi
     rot = torch.remainder(angle_a - angle_b_matched, two_pi)
     b = torch.clamp((rot * (HISTO_LENGTH / two_pi)).to(torch.int64), 0, HISTO_LENGTH - 1)
-    tgt = torch.where(ok, b, HISTO_LENGTH)
-    hist = torch.zeros(HISTO_LENGTH + 1, device=angle_a.device).index_add_(
-        0, tgt, torch.ones_like(angle_a))[:HISTO_LENGTH]
+    lead = b.shape[:-1]
+    tgt = torch.where(ok, b, HISTO_LENGTH).reshape(-1, b.shape[-1])
+    rows = torch.arange(tgt.shape[0], device=b.device)[:, None] * (HISTO_LENGTH + 1)
+    hist = torch.zeros(tgt.shape[0] * (HISTO_LENGTH + 1), device=b.device).index_add_(
+        0, (rows + tgt).reshape(-1), torch.ones(tgt.numel(), device=b.device))
+    hist = hist.reshape(lead + (HISTO_LENGTH + 1,))[..., :HISTO_LENGTH]
     top_v, top_i = topk_stable(hist, 3)
-    keep_bin = torch.zeros(HISTO_LENGTH, dtype=torch.bool, device=angle_a.device)
-    keep_bin[top_i] = top_v >= 0.1 * top_v[0]
-    return ok & keep_bin[b]
+    keep_bin = torch.zeros(lead + (HISTO_LENGTH,), dtype=torch.bool, device=b.device)
+    keep_bin.scatter_(-1, top_i, top_v >= 0.1 * top_v[..., :1])
+    return ok & torch.gather(keep_bin, -1, b)
 
 
 def match_descriptors_ratio(desc_a, valid_a, desc_b, valid_b,

@@ -1,16 +1,21 @@
-"""Relocalisation paths (port of `orbslam3lib_tpu/tracking/reloc.py:159-190`).
+"""Relocalisation paths and the keyframe database (port of
+`orbslam3lib_tpu/tracking/reloc.py:159-190, 239-285`).
 
-Only TrackReferenceKeyFrame is ported so far: it is the fallback the
-tracker takes every time a frame's inliers fall below `min_inliers`, and it
-reaches kernel 2 through `match_descriptors_ratio`. BoW candidate retrieval
-and P6P relocalisation come with the relocalisation port.
+Ported so far: TrackReferenceKeyFrame, the fallback the tracker takes every
+time a frame's inliers fall below `min_inliers` (it reaches kernel 2
+through `match_descriptors_ratio`), and the dense BoW keyframe database
+`PlaceRecognition`, which the back end fills on every keyframe. P6P
+relocalisation, `detect_reloc_candidates` and the native inverted-file
+database come with the relocalisation port.
 """
 from __future__ import annotations
 
 import torch
 
 from ..mapping.map_ba import inv_sigma2
+from ..models import vocabulary as vb
 from ..models.map_state import MapState
+from ..ops.fast import topk_stable
 from ..utils import cameras
 from .matching import match_descriptors_ratio, rotation_consistency
 from .pose_opt import PoseObs, pose_optimization
@@ -44,3 +49,36 @@ def track_reference_kf(m: MapState, kf_id: int, R0, t0, feat_xy, feat_level,
     R, t, _, n_inl = pose_optimization(R0, t0, obs, cam_params,
                                        cam_model=cam_model, bf=bf)
     return R, t, n_inl
+
+
+def make_place_recognition(voc: vb.Vocabulary, max_kf: int) -> "PlaceRecognition":
+    """The keyframe database the tracker uses: the dense one (the reference
+    calls its factory with `prefer_native=False`, tracker.py:653)."""
+    return PlaceRecognition(voc, max_kf)
+
+
+class PlaceRecognition:
+    """Dense BoW keyframe database (the KeyFrameDatabase equivalent): a
+    (max_kf, W) tf-idf matrix on the vocabulary's device; add() on keyframe
+    insertion, query() returns the top-N keyframes by DBoW2 L1 score."""
+
+    def __init__(self, voc: vb.Vocabulary, max_kf: int):
+        self.voc = voc
+        dev = voc.idf.device
+        self.bow_db = torch.zeros((max_kf, voc.n_words), dtype=torch.float32, device=dev)
+        self.active = torch.zeros(max_kf, dtype=torch.bool, device=dev)
+
+    def add(self, kf_id: int, desc_bits, valid):
+        self.bow_db[kf_id] = vb.bow_from_descriptors(self.voc, desc_bits, valid)
+        self.active[kf_id] = True
+
+    def query(self, desc_bits, valid, exclude_mask=None, n_best: int = 3):
+        """Returns (ids (n_best,), scores (n_best,)), best first; equal scores
+        keep the lower keyframe id first (the order of `lax.top_k`)."""
+        q = vb.bow_from_descriptors(self.voc, desc_bits, valid)
+        s = vb.l1_scores(self.bow_db, q)
+        s = torch.where(self.active, s, torch.full_like(s, -1.0))
+        if exclude_mask is not None:
+            s = torch.where(exclude_mask, torch.full_like(s, -1.0), s)
+        top_s, top_i = topk_stable(s, n_best)
+        return top_i, top_s

@@ -1,8 +1,9 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card (marker `cuda`; skipped without one). Imports no JAX, so it runs on a
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+slice with its back end on the card against the same slice on the CPU
+(marker `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
-    python -m pytest tests/test_torch_cuda.py -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Both kernels are exact (f32 min/max/sub; integer popcounts): `torch.equal`.
 """
@@ -10,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from orbslam3lib_tpu_torch.config import SlamConfig
 from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, matcher
 from orbslam3lib_tpu_torch.ops.extractor import DETECT_MARGIN
 from orbslam3lib_tpu_torch.ops.pyramid import REF_HEIGHTS, REF_WIDTHS
+from orbslam3lib_tpu_torch.tracking.tracker import Tracker
+
+from torch_parity import backend_config, orbit_frames
 
 PALLAS_CASES = [(400, 640, 21), (80, 128, 21), (100, 161, 21), (64, 128, 3)]
 LEVEL_CASES = [(h, w, DETECT_MARGIN) for h, w in zip(REF_HEIGHTS, REF_WIDTHS)]
@@ -59,3 +64,28 @@ def test_knn_kernel_matches_plain_on_card(cuda_device, na, nb, masked):
     assert cuda_matcher.launches == before + 1
     for g, w in zip(got, matcher.knn_match(a, b, av, bv)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_slice_with_back_end_on_card_matches_cpu(cuda_device):
+    """16 frames of the small orbit with local mapping and local BA on
+    every keyframe (test_torch_slam.py's configuration), on the card and on
+    the CPU: the same counts and keyframe records, kf_mp >= 98% equal and
+    n_mp within 2% (f32 sums in another order may flip a marginal match),
+    camera centres within 5 mm. The back end's duplicate-index scatters pick
+    their write explicitly, so the card's scatter order cannot change it."""
+    imgs, ts, rig = orbit_frames(16)
+    trackers = [Tracker(backend_config(SlamConfig, rig), "stereo", device=d)
+                for d in ("cpu", cuda_device)]
+    for img, stamp in zip(imgs, ts):
+        for tr in trackers:
+            tr.process_frame(img, float(stamp))
+    cpu, card = trackers
+    assert card.stats == cpu.stats and cpu.stats["n_local_ba"] >= 2
+    m_cpu, m_card = cpu.map, card.map
+    assert torch.equal(m_card.kf_valid.cpu(), m_cpu.kf_valid)
+    assert torch.equal(m_card.kf_parent.cpu(), m_cpu.kf_parent)
+    assert (m_card.kf_mp.cpu() == m_cpu.kf_mp).float().mean() >= 0.98
+    assert abs(int(m_card.n_mp) - int(m_cpu.n_mp)) <= 0.02 * int(m_cpu.n_mp)
+    np.testing.assert_allclose(card.trajectory_centers(), cpu.trajectory_centers(),
+                               rtol=0, atol=5e-3)

@@ -24,7 +24,9 @@ def test_port_module_list_covers_the_slice():
     names = set(_port_modules())
     for mod in ("ops.cuda_fast", "ops.cuda_matcher", "ops.extractor",
                 "tracking.tracker", "tracking.reloc", "models.map_state",
-                "io.synthetic", "evaluation", "config", "device"):
+                "io.synthetic", "evaluation", "config", "device",
+                "mapping.local_ba", "mapping.local_mapping", "mapping.loop_closing",
+                "mapping.map_ba", "models.vocabulary", "utils.smallmat"):
         assert f"orbslam3lib_tpu_torch.{mod}" in names
 
 

@@ -1,11 +1,12 @@
-"""The slice as a whole: synchronous stereo tracking with keyframe insertion
-(`Tracker.process_frame`), the port against the JAX reference on the same
-frames of bench.py's room orbit at a reduced rig size.
+"""The tracking core of the slice: synchronous stereo tracking with keyframe
+insertion (`Tracker.process_frame`), the port against the JAX reference on
+the same frames of bench.py's room orbit at a reduced rig size.
 
-The reference runs `Tracker(cfg, "stereo", enable_loop_closing=False,
-pipeline=0)` with its per-keyframe back end (`_mapping_pipeline`) patched
-to a no-op: that is the port's slice, the same code path with that one
-call left out.
+Both run `Tracker(cfg, "stereo", ...)` (the reference with
+`enable_loop_closing=False, pipeline=0`) with the per-keyframe back end
+(`_mapping_pipeline`) patched to a no-op in both packages, so that these
+tests hold the tracking core alone; `test_torch_slam.py` holds the slice
+with its back end.
 
 Two disturbed runs reach the branches an undisturbed orbit never takes.
 Before frame JOLT, either the motion prior is replaced by a wrong one
@@ -13,8 +14,10 @@ Before frame JOLT, either the motion prior is replaced by a wrong one
 `min_inliers` and the TrackReferenceKeyFrame fallback recovers the frame;
 or the frame is a flat grey image: both attempts miss, the frame counts a
 track failure and enters RECENTLY_LOST, and the next frame tracks again.
-The reference's relocalisation is off (no place recognition without loop
-closing), so its loss handling is the port's for these frames."""
+The reference queries its BoW database for relocalisation candidates on
+that frame (it does whenever it has one, loop closing or not); a frame
+without features finds none, so its loss handling is the port's, which
+has no relocalisation yet."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +31,7 @@ from orbslam3lib_tpu_torch.config import SlamConfig as TCfg  # noqa: E402
 from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 
 from torch_parity import (fast_reference_brief, orbit_frames,  # noqa: E402,F401
-                          reference_mapping_off, slice_config)
+                          mapping_off, slice_config)
 
 N_FRAMES = 8
 
@@ -53,7 +56,7 @@ def _run_both(imgs, ts, rig, bad_prior=None):
         n_ref_calls[0] += 1
         return real(*a, **k)
 
-    with reference_mapping_off(), pytest.MonkeyPatch.context() as mp:
+    with mapping_off(), pytest.MonkeyPatch.context() as mp:
         mp.setattr(jreloc, "track_reference_kf", counted)
         jt = jtr.Tracker(slice_config(JCfg, rig), "stereo",
                          enable_loop_closing=False, pipeline=0)

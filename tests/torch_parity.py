@@ -64,11 +64,50 @@ def slice_config(cfg_cls, rig, max_kp: int = 256, n_levels: int = 4):
     return cfg
 
 
-@contextlib.contextmanager
-def reference_mapping_off():
-    """The JAX Tracker without its per-keyframe back end: the port's slice is
-    the same code path with `_mapping_pipeline` left out."""
+def backend_config(cfg_cls, rig):
+    """`slice_config` with the back end's window cut to the small map and
+    dense keyframing (as tests/test_covis_mapping.py does): a keyframe every
+    2 frames, so that about 16 frames run local BA, triangulation against
+    several neighbours and culling."""
+    cfg = slice_config(cfg_cls, rig)
+    cfg.tracker.min_frames_between_kf = 2
+    cfg.tracker.kf_ref_ratio = 10.0
+    cfg.ba.window_size = 3
+    cfg.ba.n_fixed = 2
+    cfg.ba.max_points = 1024
+    return cfg
+
+
+def reference_backend_snapshots(n_frames: int):
+    """Run the JAX tracker with its back end over the first n_frames of the
+    small orbit and keep the map as it stood before each keyframe's
+    `_mapping_pipeline`: {kf_id: numpy map}. Returns (snapshots, cfg)."""
+    from orbslam3lib_tpu.config import SlamConfig
     from orbslam3lib_tpu.tracking import tracker as jtr
+    imgs, ts, rig = orbit_frames(n_frames)
+    cfg = backend_config(SlamConfig, rig)
+    snaps = {}
+    real = jtr.Tracker._mapping_pipeline
+
+    def recording(self, kid, *a, **k):
+        snaps[int(kid)] = {f: np.asarray(v) for f, v in self.map._asdict().items()}
+        return real(self, kid, *a, **k)
+
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jtr.Tracker, "_mapping_pipeline", lambda self, *a, **k: None)
+        mp.setattr(jtr.Tracker, "_mapping_pipeline", recording)
+        tr = jtr.Tracker(cfg, "stereo", enable_loop_closing=False, pipeline=0)
+        for img, stamp in zip(imgs, ts):
+            tr.process_frame(img, float(stamp))
+    return snaps, cfg
+
+
+@contextlib.contextmanager
+def mapping_off():
+    """Both Trackers without their per-keyframe back end
+    (`_mapping_pipeline`): the tracking core alone."""
+    from orbslam3lib_tpu.tracking import tracker as jtr
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    with pytest.MonkeyPatch.context() as mp:
+        for cls in (jtr.Tracker, ttr.Tracker):
+            mp.setattr(cls, "_mapping_pipeline", lambda self, *a, **k: None)
         yield

@@ -1,4 +1,4 @@
-"""Where the time of the PyTorch port's stereo tracking slice goes, on one
+"""Where the time of the PyTorch port's stereo SLAM slice goes, on one
 CUDA card.
 
     python3 tools/profile_torch_slice.py [--out FILE]
@@ -12,7 +12,10 @@ chip_smoke.py does, without its jolt), and after WARM frames:
     per frame (the sum of CUDA kernel and copy events, each counted once),
     the device's idle share against the un-profiled frame time, device
     events and cudaLaunchKernel calls per frame, and the tables of
-    key_averages() by device and by host time.
+    key_averages() by device and by host time;
+  * profiles one more run of the per-keyframe back end
+    (`Tracker._mapping_pipeline`) on the last keyframe: its host time,
+    device busy time, device events and cudaLaunchKernel calls.
 The summary line goes to stdout; the tables to --out (default: stdout).
 """
 import argparse
@@ -27,6 +30,16 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 WARM, STEADY = 30, 15
+
+
+def device_counts(ka):
+    """(device busy ms, device events, cudaLaunchKernel calls) of a
+    key_averages() table. Device events only for the busy time: the aten ops
+    that launched them carry the same device time again."""
+    on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in on_dev) / 1e3,
+            sum(e.count for e in on_dev),
+            sum(e.count for e in ka if e.key == "cudaLaunchKernel"))
 
 
 def main() -> int:
@@ -61,18 +74,23 @@ def main() -> int:
             tr.process_frame(imgs[i], float(ts[i]))
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    # device events only: the aten ops that launched them carry the same
-    # device time again
-    on_dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 / STEADY
-    n_dev = sum(e.count for e in on_dev) / STEADY
-    n_launch = sum(e.count for e in ka if e.key == "cudaLaunchKernel") / STEADY
+    busy_ms, n_dev, n_launch = (x / STEADY for x in device_counts(ka))
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as kf_prof:
+        tr._mapping_pipeline(tr.last_kf_id)
+        torch.cuda.synchronize()
+    kf_ms = (time.perf_counter() - t0) * 1e3
+    kf_busy, kf_dev, kf_launch = device_counts(kf_prof.key_averages())
 
     print(card_line())
     print(f"un-profiled {wall_ms:.3f} ms/frame (median of {STEADY}); device busy "
           f"{busy_ms:.3f} ms/frame; idle share {1.0 - busy_ms / wall_ms:.3f}; "
           f"device events {n_dev:.0f}/frame; cudaLaunchKernel {n_launch:.0f}/frame; "
           f"stats {tr.stats}")
+    print(f"back end of one keyframe (profiled): {kf_ms:.3f} ms host; device busy "
+          f"{kf_busy:.3f} ms; device events {kf_dev:.0f}; cudaLaunchKernel "
+          f"{kf_launch:.0f}")
     tables = (ka.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=60) + "\n"
               + ka.table(sort_by="self_cpu_time_total", row_limit=30,
