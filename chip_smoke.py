@@ -11,24 +11,37 @@ Phases, each fatal on failure:
      (`torch.equal`); time both at the main-path shape (CUDA events, median);
   3. slice: render the bench's orbit sequence (bench.py's world, trajectory,
      seed and 640x400 rig) with the port's numpy renderer and drive
-     `Tracker.process_frame` over its first N_FRAMES frames (12 s, half the
-     orbit: no revisit, so no loop) on the card with bench.py's
-     configuration (512 keypoints, 8 levels, 2x2 pose iterations, 256 KF /
-     16384 MP map, the default local BA and local mapping), the synchronous
-     back end on every keyframe: BoW add + local mapping, then local BA.
-     Before frame JOLT_FRAME the tracker's motion prior is replaced by a
-     wrong one, as a jolt of the camera would, so that frame misses its
+     `Tracker.process_frame` over its first N_FRAMES frames (the orbit's
+     period is 24 s, 360 frames: the camera comes back to its first views
+     and the loop closes) on the card with bench.py's configuration (512
+     keypoints, 8 levels, 2x2 pose iterations, 256 KF / 16384 MP map, the
+     default local BA and local mapping), loop closing on: on every
+     keyframe BoW add + local mapping + the loop probe, then local BA, then
+     the loop closer on the probe's pack (verification, essential-graph
+     correction and global BA on a confirmed loop). Before frame
+     JOLT_FRAME, after the loop, the tracker's motion prior is replaced by
+     a wrong one, as a jolt of the camera would, so that frame misses its
      inliers and takes the TrackReferenceKeyFrame fallback (kernel 2).
+     Then a kidnap: the image of frame N_FRAMES - KIDNAP_BACK (half a
+     revolution back) comes with the next timestamp, and two more frames
+     after it; the motion model and the fallback fail on it and BoW
+     relocalisation must find the pose (checked against the analytic pose
+     through the keyframes' alignment to the orbit).
      Kernel launch counters are zeroed just before and read just after the
-     frames; the back end's two steps (`mapper_step_fused`, `map_window_ba`)
-     are timed per keyframe by CUDA events, with torch's sync debug mode
-     on around them. Checks: final state OK, no track failure, >= 10
-     keyframes (the 8 + 2 BA window fills), the fallback taken, one
-     kernel-1 launch per pyramid level per frame (both eyes share a launch),
-     kernel 2 launched, local mapping once per keyframe after the first,
-     local BA on every keyframe from the third on, neither back-end step
+     frames; the back end's steps are timed by CUDA events (per keyframe:
+     `mapper_step_fused`, its `loop_probe`, `map_window_ba`; per loop:
+     `verify_loop_fused`, `LoopCloser.correct`, `global_bundle_adjust`),
+     with torch's sync debug mode on around them. Checks: state OK, one
+     track failure (the kidnapped frame), the jolted frame's fallback, the
+     reference's loop count and keyframe pair, relocalisation of the
+     kidnapped frame within KIDNAP_POSE_M of its analytic pose, one
+     kernel-1 launch per pyramid level per frame (both eyes share a
+     launch), kernel 2 at least once per probed keyframe, local mapping once
+     per keyframe after the first, local BA on every keyframe from the
+     third on, neither `mapper_step_fused` (with its probe) nor local BA
      waiting on the card from the host, at most max_mp landmarks, finite
-     poses and ATE against the analytic trajectory within ATE_BOUND_M.
+     poses, and the ATE of the trajectory and of the loop-corrected
+     keyframes against the analytic orbit within their bounds.
 
 The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), one JSON object with a row per kernel,
@@ -45,17 +58,27 @@ import warnings
 import numpy as np
 import torch
 
-N_FRAMES = 180
-# ATE bound (m): the JAX reference's CPU ATE on the same 180 frames with the
-# same jolt (`Tracker(cfg, "stereo", enable_loop_closing=False, pipeline=0)`,
-# back end on), 0.030221 m, x 1.5 + 5 mm (PERF.md).
-ATE_BOUND_M = 0.05034
+N_FRAMES = 400
+# The JAX reference on the CPU, on these 400 frames without the jolt
+# (`Tracker(cfg, "stereo", enable_loop_closing=True, pipeline=0)`, bench.py's
+# configuration): its first and only loop closes at frame 343, keyframe 27
+# against keyframe 1; ATE 0.0332 m on the trajectory and 0.0242 m on the
+# corrected keyframes. Bounds: x 1.5 + 5 mm (PERF.md).
+REF_N_LOOPS = 1
+REF_LOOP_EDGE = (1, 27)
+ATE_BOUND_M = 0.0548
+KF_ATE_BOUND_M = 0.0413
 # The frame before which the constant-velocity prior is replaced by
 # JOLT_PRIOR: 0.2 rad about the camera's y axis and 0.3 m sideways. Searched
 # from there, the frame finds too few inliers; the fallback re-seeds from
-# the reference keyframe and the last pose.
-JOLT_FRAME = 40
+# the reference keyframe and the last pose. It comes after the loop, so the
+# frames up to the loop are the ones the reference ran.
+JOLT_FRAME = 370
 JOLT_PRIOR = ((0.0, 0.2, 0.0), (0.3, 0.0, 0.0))
+# The kidnap: the image of frame N_FRAMES - KIDNAP_BACK, then the two after
+# it, with the timestamps that follow the run's last.
+KIDNAP_BACK = 180
+KIDNAP_POSE_M = 0.05
 
 FAST_SHAPES = [(400, 640), (320, 512), (240, 384), (196, 314), (160, 256),
                (127, 203), (101, 161), (80, 128)]
@@ -149,7 +172,8 @@ def check_knn(dev, gen):
 class StepTimer:
     """Wraps a back-end step: CUDA events around each call (read after the
     run, so timing adds no wait) and torch's sync debug mode, which warns
-    at every point where the host would wait on the card."""
+    at every point where the host would wait on the card. Nested timers
+    each keep the waits inside their own call."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -159,6 +183,7 @@ class StepTimer:
     def __call__(self, *args, **kwargs):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        prev = torch.cuda.get_sync_debug_mode()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -167,7 +192,7 @@ class StepTimer:
                 out = self.fn(*args, **kwargs)
                 e.record()
             finally:
-                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.set_sync_debug_mode(prev)
         self.syncs += [str(w.message) for w in caught
                        if "called a synchronizing" in str(w.message)]
         self.events.append((s, e))
@@ -175,6 +200,29 @@ class StepTimer:
 
     def ms(self):
         return [s.elapsed_time(e) for s, e in self.events]
+
+
+def stage_line(name: str, ms_list) -> str:
+    v = np.asarray(ms_list)
+    if not len(v):
+        return f"{name}: not run"
+    return (f"{name} median {np.median(v):.3f}, p90 {np.percentile(v, 90):.3f}, "
+            f"max {np.max(v):.3f} over {len(v)}")
+
+
+def kf_ate(m, origin: float):
+    """ATE of the map's valid keyframes against the analytic orbit at their
+    timestamps, and the alignment (R, t) of the map's frame onto the
+    world's that it uses."""
+    from orbslam3lib_tpu_torch.evaluation import ate_rmse, umeyama_alignment
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_pose_at
+    v = m.kf_valid.cpu().numpy()
+    R, t = m.kf_R.cpu().numpy()[v], m.kf_t.cpu().numpy()[v]
+    kf_ts = m.kf_ts.cpu().numpy()[v].astype(np.float64) + origin
+    est = -np.einsum("kji,kj->ki", R, t)
+    gt = orbit_pose_at(kf_ts, period=24.0, radius=0.5)[1]
+    _, R_a, t_a = umeyama_alignment(est, gt)
+    return ate_rmse(est, gt), (R_a, t_a)
 
 
 def main() -> int:
@@ -186,6 +234,7 @@ def main() -> int:
     from orbslam3lib_tpu_torch.io.synthetic import (orbit_pose_at,
                                                     orbit_tracking_config,
                                                     render_orbit_sequence)
+    from orbslam3lib_tpu_torch.mapping import loop_closing as lc_mod
     from orbslam3lib_tpu_torch.ops import _cuda_lib, cuda_fast, cuda_matcher, pyramid
     from orbslam3lib_tpu_torch.ops.extractor import extract_orb_stereo
     from orbslam3lib_tpu_torch.tracking import tracker as ttr
@@ -222,25 +271,45 @@ def main() -> int:
         f"{extract_ms:.3f} ms per frame")
 
     # -- 3. the slice: frames in, poses out ---------------------------------
-    mapper_t = StepTimer(ttr.mapper_step_fused)
-    ba_t = StepTimer(ttr._local_ba)
-    ttr.mapper_step_fused, ttr._local_ba = mapper_t, ba_t
+    timers = {"mapper_step_fused": StepTimer(ttr.mapper_step_fused),
+              "loop_probe": StepTimer(lc_mod.loop_probe),
+              "map_window_ba": StepTimer(ttr._local_ba),
+              "verify_loop_fused": StepTimer(lc_mod.verify_loop_fused),
+              "correct": StepTimer(lc_mod.LoopCloser.correct),
+              "global_bundle_adjust": StepTimer(lc_mod.global_bundle_adjust)}
+    ttr.mapper_step_fused, ttr._local_ba = timers["mapper_step_fused"], timers["map_window_ba"]
+    lc_mod.loop_probe = timers["loop_probe"]
+    lc_mod.verify_loop_fused = timers["verify_loop_fused"]
+    lc_mod.global_bundle_adjust = timers["global_bundle_adjust"]
+    correct_t = timers["correct"]
+    lc_mod.LoopCloser.correct = lambda self, *a, **k: correct_t(self, *a, **k)
     tracker = Tracker(cfg, sensor="stereo", device=dev)
     jolt = (lie.so3_exp(torch.tensor(JOLT_PRIOR[0], device=dev)),
             torch.tensor(JOLT_PRIOR[1], device=dev))
+    dt = float(ts[1] - ts[0])
+    kid = N_FRAMES - KIDNAP_BACK
+    frames = [(imgs[i], float(ts[i])) for i in range(N_FRAMES)] + \
+        [(imgs[kid + i], float(ts[-1]) + (i + 1) * dt) for i in range(3)]
     torch.cuda.synchronize()
     cuda_fast.reset_count()
     cuda_matcher.reset_count()
-    frame_ms, jolt_res = [], None
-    for i in range(N_FRAMES):
+    frame_ms, results, loop_frame, kf_ate_m, loop_pair = [], [], None, None, None
+    for i, (img, stamp) in enumerate(frames):
         if i == JOLT_FRAME:
             tracker.vel = jolt
         t0 = time.perf_counter()
-        res = tracker.process_frame(imgs[i], float(ts[i]))
+        res = tracker.process_frame(img, stamp)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if i == JOLT_FRAME:
-            jolt_res = res
+        results.append(res)
+        if loop_frame is None and tracker.stats["n_loops"] > 0:
+            loop_frame = i
+        if i == N_FRAMES - 1:
+            # before the kidnap's frames can add keyframes at their stamps
+            kf_ate_m, align = kf_ate(tracker.map, float(ts[0]))
+            traj_before = tracker.trajectory_centers()
+            fail_before = tracker.stats["track_fail"]
+            loop_pair = list(tracker.loop_closer.loop_edges)
     launches = {"fast_scores_nms": cuda_fast.launches,
                 "knn_match_fused": cuda_matcher.launches}
     torch.cuda.synchronize()
@@ -248,32 +317,60 @@ def main() -> int:
     st = tracker.stats
     med, p90 = np.percentile(frame_ms, 50), np.percentile(frame_ms, 90)
     n_alive = int(tracker.map.kf_valid.sum())
-    log(f"[smoke] slice: {N_FRAMES} frames, median {med:.2f} ms, p90 {p90:.2f} ms "
+    log(f"[smoke] slice: {len(frames)} frames, median {med:.2f} ms, p90 {p90:.2f} ms "
         f"per frame (first {frame_ms[0]:.1f} ms); KFs {st['n_kf']} created, "
         f"{n_alive} alive; landmarks {int(tracker.map.n_mp)}, track_fail "
         f"{st['track_fail']}, ref-KF fallbacks {st['ref_kf_fallbacks']} (jolted "
-        f"frame {JOLT_FRAME}: {jolt_res}, {frame_ms[JOLT_FRAME]:.2f} ms); "
+        f"frame {JOLT_FRAME}: {results[JOLT_FRAME]}, {frame_ms[JOLT_FRAME]:.2f} ms); "
         f"mapping steps {st['n_mapping_steps']}, local BAs {st['n_local_ba']}; "
         f"launches {launches}")
-    per_kf = {name: t.ms() for name, t in (("mapper_step_fused", mapper_t),
-                                            ("map_window_ba", ba_t))}
+    lcr = tracker.loop_closer
+    ver = lcr.last_verification
+    log(f"[smoke] loops {st['n_loops']} (first at frame {loop_frame}, "
+        f"{frame_ms[loop_frame] if loop_frame is not None else float('nan'):.1f} ms "
+        f"that frame), loop edges {loop_pair}, loop_latency_ms "
+        f"{st.get('loop_latency_ms')}; last verification "
+        f"{None if ver is None else (ver[0], ver[1], ver[2][:5].tolist(), float(ver[2][17]))}")
+    per = {name: t.ms() for name, t in timers.items()}
     print("per-keyframe device ms (CUDA events): " + "; ".join(
-        f"{name} median {np.median(v):.3f}, p90 {np.percentile(v, 90):.3f}, "
-        f"max {np.max(v):.3f} over {len(v)}" for name, v in per_kf.items() if v))
-    syncs = mapper_t.syncs + ba_t.syncs
-    if syncs:
-        log(f"[smoke] host syncs in the back end: {len(syncs)}; first: {syncs[:3]}")
+        stage_line(n, per[n]) for n in ("mapper_step_fused", "loop_probe", "map_window_ba")))
+    print("per-loop device ms (CUDA events): " + "; ".join(
+        stage_line(n, per[n]) for n in ("verify_loop_fused", "correct",
+                                         "global_bundle_adjust"))
+          + f"; loop_latency_ms (host, keyframe to corrected map) "
+            f"{st.get('loop_latency_ms')}")
+    syncs = {name: len(t.syncs) for name, t in timers.items()}
+    log(f"[smoke] host syncs per step (sync debug mode): {syncs}")
+    back_end_syncs = (timers["mapper_step_fused"].syncs + timers["loop_probe"].syncs
+                      + timers["map_window_ba"].syncs)
+    if back_end_syncs:
+        log(f"[smoke] host syncs in the back end: {len(back_end_syncs)}; "
+            f"first: {back_end_syncs[:3]}")
 
-    centers = tracker.trajectory_centers()
-    t_traj = np.asarray([f[0] for f in tracker.trajectory])
+    t_traj = np.asarray([f[0] for f in tracker.trajectory[:N_FRAMES]])
     _, gt = orbit_pose_at(t_traj, period=24.0, radius=0.5)
-    ate = ate_rmse(centers, gt) if len(centers) >= 3 else float("inf")
-    log(f"[smoke] ATE {ate:.6f} m over {len(centers)} frames (bound {ATE_BOUND_M} m)")
+    ate = ate_rmse(traj_before, gt) if len(traj_before) >= 3 else float("inf")
+    log(f"[smoke] ATE {ate:.6f} m over {len(traj_before)} frames (bound {ATE_BOUND_M} m); "
+        f"keyframe ATE {kf_ate_m:.6f} m (bound {KF_ATE_BOUND_M} m)")
+
+    # the kidnapped frame: its camera centre against the analytic one, the
+    # map carried onto the world by the keyframe ATE's alignment (the loop
+    # correction moves the map's gauge off the first camera)
+    c_true = orbit_pose_at(np.array([ts[kid]]), period=24.0, radius=0.5)[1][0]
+    _, R_k, t_k = tracker.trajectory[N_FRAMES]
+    kid_err = float(np.linalg.norm(align[0] @ (-R_k.T @ t_k) + align[1] - c_true))
+    R_cw, c_w = orbit_pose_at(np.array([ts[0], ts[kid]]), period=24.0, radius=0.5)
+    kid_err_first = float(np.linalg.norm(-R_k.T @ t_k - R_cw[0].T @ (c_w[1] - c_w[0])))
+    kid_res = results[N_FRAMES]
+    log(f"[smoke] kidnap (image of frame {kid} at frame {N_FRAMES}): {kid_res}, "
+        f"{frame_ms[N_FRAMES]:.1f} ms; pose {kid_err:.4f} m from the analytic one "
+        f"({kid_err_first:.4f} m in the first camera's frame, unaligned); "
+        f"after: {[r['state'] for r in results[N_FRAMES + 1:]]}")
 
     # kernel 2 on real descriptors: the last frame's against the last
     # keyframe's (after the counters were read)
     feats = extract_orb_stereo(
-        torch.as_tensor(imgs[-1], device=dev), float(np.float32(tracker.threshold.t)),
+        torch.as_tensor(frames[-1][0], device=dev), float(np.float32(tracker.threshold.t)),
         max_kp=cfg.orb.max_kp, n_levels=cfg.orb.n_levels)
     kf = tracker.last_kf_id
     knn_err = max(knn_err, check_knn_pair(
@@ -281,23 +378,33 @@ def main() -> int:
         tracker.map.kf_feat_valid[kf] & (tracker.map.kf_mp[kf] >= 0)))
     log("[smoke] kernel 2 bit-exact on the last frame's descriptors vs the last keyframe's")
 
+    centers = tracker.trajectory_centers()
+    n_probes = len(timers["loop_probe"].events)
     checks = {
-        "state OK": tracker.state == OK,
-        "no track failure": st["track_fail"] == 0,
-        ">= 10 keyframes": st["n_kf"] >= 10,
-        "local mapping on every keyframe after the first":
-            st["n_mapping_steps"] == len(mapper_t.events) == st["n_kf"] - 1,
-        "local BA on every keyframe from the third on":
-            st["n_local_ba"] == len(ba_t.events) == st["n_kf"] - 2,
-        "no host sync in the back end": not syncs,
-        "landmarks within max_mp": 0 < int(tracker.map.n_mp) <= cfg.map.max_mp,
+        "state OK": tracker.state == OK and all(r["state"] == OK for r in results[N_FRAMES:]),
+        "no track failure before the kidnap": fail_before == 0,
+        "one track failure in all (the kidnapped frame)": st["track_fail"] == 1,
         "jolted frame took the ref-KF fallback and tracked":
-            st["ref_kf_fallbacks"] >= 1 and jolt_res["state"] == OK,
+            st["ref_kf_fallbacks"] >= 1 and results[JOLT_FRAME]["state"] == OK,
+        "the reference's loops": st["n_loops"] == REF_N_LOOPS
+            and loop_pair == [REF_LOOP_EDGE],
+        "kidnapped frame relocalised": st["n_reloc"] >= 1 and bool(kid_res.get("reloc")),
+        "relocalised pose near the analytic one": kid_err <= KIDNAP_POSE_M,
+        "local mapping on every keyframe after the first":
+            st["n_mapping_steps"] == len(timers["mapper_step_fused"].events)
+            == st["n_kf"] - 1,
+        "local BA on every keyframe from the third on":
+            st["n_local_ba"] == len(timers["map_window_ba"].events) == st["n_kf"] - 2,
+        "the probe on every keyframe's mapper step": n_probes == st["n_mapping_steps"],
+        "no host sync in the back end (mapper step with its probe, local BA)":
+            not back_end_syncs,
+        "landmarks within max_mp": 0 < int(tracker.map.n_mp) <= cfg.map.max_mp,
         "kernel 1 once per level per frame":
-            launches["fast_scores_nms"] == cfg.orb.n_levels * N_FRAMES,
-        "kernel 2 launched": launches["knn_match_fused"] >= 1,
-        "finite poses": bool(np.isfinite(centers).all()) and len(centers) == N_FRAMES,
+            launches["fast_scores_nms"] == cfg.orb.n_levels * len(frames),
+        "kernel 2 at least once per probed keyframe": launches["knn_match_fused"] >= n_probes,
+        "finite poses": bool(np.isfinite(centers).all()) and len(centers) == len(frames),
         "ATE within bound": ate <= ATE_BOUND_M,
+        "keyframe ATE within bound": kf_ate_m <= KF_ATE_BOUND_M,
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -33,6 +34,16 @@ def get_device(name: str | torch.device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A small host array on `dev` without the host waiting for the card: a
+    copy from pageable memory (`torch.tensor(..., device=cuda)`) waits for
+    the queue, one from pinned memory does not."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def card_line() -> str:

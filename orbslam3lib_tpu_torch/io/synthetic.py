@@ -264,15 +264,15 @@ def corridor_trajectory(n_frames: int, dt: float = 1.0 / 15.0,
 
 
 def render_orbit_sequence(n_frames: int, rig: StereoRig | None = None,
-                          seed: int = 0):
+                          seed: int = 0, period: float = 24.0):
     """bench.py's room-orbit sequence (bench.py:50-73): the closed room, the
-    15 FPS orbit of radius 0.5 m and period 24 s, and noise seed `seed`,
-    rendered for `rig` (default: the 640x400 StereoRig).
+    15 FPS orbit of radius 0.5 m and period `period` (bench.py's: 24 s), and
+    noise seed `seed`, rendered for `rig` (default: the 640x400 StereoRig).
 
     Returns (uint8 (n_frames, 2, H, W) stereo pairs, f64 timestamps, rig)."""
     rig = rig or StereoRig()
     world = CorridorWorld(half_w=4.0, half_h=1.5, z0=-4.0, z1=4.0, back_wall=True)
-    R_l, c_l, ts = orbit_trajectory(n_frames, dt=1.0 / 15.0, period=24.0, radius=0.5)
+    R_l, c_l, ts = orbit_trajectory(n_frames, dt=1.0 / 15.0, period=period, radius=0.5)
     rng = np.random.default_rng(seed)
     imgs = np.zeros((n_frames, 2, rig.height, rig.width), np.uint8)
     for i in range(n_frames):

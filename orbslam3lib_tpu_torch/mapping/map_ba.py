@@ -1,10 +1,13 @@
 """Map-level bundle adjustment: the keyframe-window gather and scatter
 around `local_ba.bundle_adjust` (port of
-`orbslam3lib_tpu/mapping/map_ba.py:28-109`).
+`orbslam3lib_tpu/mapping/map_ba.py:28-141`), and the chunked global BA.
 
-`global_bundle_adjust` and `merge_gba_result` come with the loop leg.
+`merge_gba_result` waits for the asynchronous global BA, and the
+landmark-sharded `global_bundle_adjust_dist` for the port of `parallel/`.
 """
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 
@@ -97,3 +100,34 @@ def map_window_ba(m: ms.MapState, window_ids, fixed_mask, cam_params, bf: float,
                                             bf=bf, n_iters=n_iters)
     return _scatter_window_result(m, cam_R, cam_t, points, ids, sel_ids,
                                   cam_ok, pt_ok, fixed_mask)
+
+
+def global_bundle_adjust(m: ms.MapState, cam_params, bf: float,
+                         cam_model: int = 0, n_iters: int = 10, chunk: int = 5,
+                         n_ba_points: Optional[int] = None,
+                         should_abort: Optional[Callable[[], bool]] = None
+                         ) -> ms.MapState:
+    """Full-map BA (GlobalBundleAdjustemnt, Optimizer.cc:53): `map_window_ba`
+    over all max_kf slots (empty ones fixed and unwritten), the first valid
+    keyframe fixed as the gauge, in LM chunks of `chunk` iterations with
+    `should_abort` polled between them (the mbStopGBA flag of
+    RunGlobalBundleAdjustment, LoopClosing.cc:2268). In place.
+
+    This is the reference's single-device route of
+    `global_bundle_adjust_auto`; the sharded one waits for the port of
+    `parallel/`."""
+    K = m.max_kf
+    ii = torch.arange(K, dtype=torch.int32, device=m.kf_R.device)
+    window_ids = torch.where(m.kf_valid, ii, -1)
+    fixed = ii == torch.argmax(m.kf_valid.to(torch.int32))
+    if n_ba_points is None:
+        n_ba_points = m.max_mp
+    done = 0
+    while done < n_iters:
+        it = min(chunk, n_iters - done)
+        m = map_window_ba(m, window_ids, fixed, cam_params, bf, cam_model,
+                          n_ba_points, it)
+        done += it
+        if should_abort is not None and should_abort():
+            break
+    return m

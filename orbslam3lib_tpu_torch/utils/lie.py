@@ -1,13 +1,18 @@
-"""SO(3)/SE(3) substrate (port of the subset of `orbslam3lib_tpu/utils/lie.py`
-that stereo tracking uses; Sim(3) comes with loop closing).
+"""SO(3), SE(3) and Sim(3) (port of `orbslam3lib_tpu/utils/lie.py`).
 
 Conventions as in the reference: rotations are (..., 3, 3) matrices, SE(3)
-is a pair (R, t), se(3) tangents are [rho, phi] (translation first). Every
-function is batched over leading dimensions.
+is a pair (R, t), Sim(3) a triple (R, t, s), se(3) tangents are [rho, phi]
+(translation first) and sim(3) tangents [rho, phi, sigma]. Every function is
+batched over leading dimensions and pure: no in-place writes and no Python
+branch on a tensor's value (small-angle cases go through `torch.where`), so
+`torch.func.vmap` / `jacfwd` trace them, and nothing waits for the card.
 """
 from __future__ import annotations
 
 import torch
+import torch.autograd.forward_ad as fwad
+
+from .smallmat import inv3
 
 _EPS = 1e-8
 
@@ -21,6 +26,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
         torch.stack([wz, z, -wx], dim=-1),
         torch.stack([-wy, wx, z], dim=-1),
     ], dim=-2)
+
+
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _sin_cos_coeffs(theta2: torch.Tensor):
@@ -52,6 +62,18 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     _, B, C = _sin_cos_coeffs(theta2)
     W = hat(w)
     return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SO(3), with its small-angle series."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = hat(w)
+    small = theta2 < _EPS
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                       1.0 / theta2 - (1.0 + torch.cos(theta))
+                       / (2.0 * theta * torch.sin(theta) + _EPS))
+    return _eye_like(W) + 0.5 * W + coef[..., None, None] * (W @ W)
 
 
 def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
@@ -110,6 +132,13 @@ def se3_exp(xi: torch.Tensor):
     return R, t
 
 
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """SE(3) log -> (..., 6) [rho, phi]."""
+    phi = so3_log(R)
+    rho = _matvec(so3_right_jacobian_inv(-phi), t)
+    return torch.cat([rho, phi], dim=-1)
+
+
 def _matvec(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """R (..., 3, 3) applied to v (..., 3), broadcasting like the reference's
     einsum('...ij,...j->...i')."""
@@ -129,3 +158,86 @@ def se3_inverse(R, t):
 def se3_apply(R, t, p):
     """Apply the transform to points p (..., 3)."""
     return _matvec(R, p) + t
+
+
+# -- Sim(3): loop closing (Sim3Solver, OptimizeSim3, the essential graph) --
+
+def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The Sim(3) W matrix of sim3_exp (t = W rho): (..., 3) x (...,) ->
+    (..., 3, 3), closed forms per small-angle / small-scale regime."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    s = torch.exp(sigma)
+    W = hat(phi)
+    small_s = torch.abs(sigma) < 1e-4
+    small_t = theta < 1e-4
+    sig = torch.where(small_s, torch.ones_like(sigma), sigma)  # safe denominators
+    th = torch.where(small_t, torch.ones_like(theta), theta)
+    cI = torch.where(small_s, torch.ones_like(s), (s - 1.0) / sig)
+
+    sin_t, cos_t = torch.sin(th), torch.cos(th)
+    c = th * th + sig * sig
+    a_g = s * sin_t
+    b_g = s * cos_t
+    cW_gen = (a_g * sig + (1.0 - b_g) * th) / (th * c)
+    cW2_gen = (cI - ((b_g - 1.0) * sig + a_g * th) / c) / (th * th)
+    cW_st = ((sig - 1.0) * s + 1.0) / (sig * sig)             # theta -> 0
+    cW2_st = (s * (0.5 * sig * sig - sig + 1.0) - 1.0) / (sig ** 3)
+    cW_ss = (1.0 - cos_t) / (th * th)                         # sigma -> 0
+    cW2_ss = (th - sin_t) / (th ** 3)
+    half = torch.full_like(sigma, 0.5)
+    sixth = torch.full_like(sigma, 1.0 / 6.0)
+    cW = torch.where(small_s, torch.where(small_t, half, cW_ss),
+                     torch.where(small_t, cW_st, cW_gen))
+    cW2 = torch.where(small_s, torch.where(small_t, sixth, cW2_ss),
+                      torch.where(small_t, cW2_st, cW2_gen))
+    return (cI[..., None, None] * _eye_like(W) + cW[..., None, None] * W
+            + cW2[..., None, None] * (W @ W))
+
+
+def sim3_exp(xi: torch.Tensor):
+    """sim(3) exp: [rho, phi, sigma] (..., 7) -> (R, t, s)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return so3_exp(phi), _matvec(_sim3_W(phi, sigma), rho), torch.exp(sigma)
+
+
+def sim3_log(R: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Sim(3) log -> (..., 7) [rho, phi, sigma], the inverse of sim3_exp. W
+    is inverted in closed form (the reference solves by LU): no pivoting is
+    needed for W, whose spectrum stays near (s - 1) / sigma."""
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    rho = _matvec(inv3(_sim3_W(phi, sigma)), t)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * _matvec(R, p) + t
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * _matvec(Rt, t), s_inv
+
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    return Ra @ Rb, sa[..., None] * _matvec(Ra, tb) + ta, sa * sb
+
+
+def value_and_rowwise_jacobian(f, x: torch.Tensor, *row_args):
+    """y = f(x, *row_args) and its forward-mode Jacobian (E, ..., n), for an
+    f whose row e of y (E, ...) depends only on row e of x (E, n) and of each
+    row_arg. The reference vmaps `jax.jacfwd` over the rows; here one
+    forward-mode product covers all n columns at once: the rows are
+    repeated n times, copy k carrying the tangent e_k, and y is copy 0's
+    primal. Keep every row at least 1-d: in torch 2.x forward mode through
+    a 0-d tensor times a Python float promotes the tangent to f64."""
+    n, E = x.shape[-1], x.shape[0]
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+    tangent = eye.repeat_interleave(E, dim=0)                 # copy k: e_k
+    reps = [a.repeat((n,) + (1,) * (a.dim() - 1)) for a in row_args]
+    with fwad.dual_level():
+        y, dy = fwad.unpack_dual(f(fwad.make_dual(x.repeat(n, 1), tangent), *reps))
+    dy = dy.reshape((n, E) + dy.shape[1:])
+    return y[:E], dy.permute(tuple(range(1, dy.dim())) + (0,))

@@ -33,6 +33,14 @@ def inv3(M: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
+def det3(M: torch.Tensor) -> torch.Tensor:
+    """Determinant of (..., 3, 3) matrices by cofactor expansion (no LU, so
+    nothing on the card checks a pivot)."""
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
+
+
 def adjugate4(M: torch.Tensor) -> torch.Tensor:
     """Adjugate of (..., 4, 4) matrices (det(M) M^-1) by cofactor expansion
     over 2x2 minors."""

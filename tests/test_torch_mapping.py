@@ -255,8 +255,10 @@ def test_mapping_step(run, kid):
 
 
 def test_mapper_step_fused(run):
-    """BoW add + mapping_step and the 16-float pack; the probe is the loop
-    leg's and raises."""
+    """BoW add + mapping_step and the 16-float pack, without the probe and
+    with it (after the keyframes before it entered the database, the
+    previous consistent candidate 2): maps, database and packs equal, the
+    probe's BoW scores within 1e-6."""
     snaps, cam, _ = run
     m = snaps[KID]
     jv = jvb.load_vocabulary(jvb.DEFAULT_VOCAB_PATH)
@@ -266,7 +268,8 @@ def test_mapper_step_fused(run):
     act0 = np.zeros(K, bool)
     got = tlc.mapper_step_fused(tms.from_numpy(m), torch.from_numpy(db0.copy()),
                                 torch.from_numpy(act0.copy()), tv.centroids, tv.idf,
-                                KID, torch.from_numpy(cam), k=tv.k, depth=tv.depth, **KW)
+                                KID, torch.from_numpy(cam), k=tv.k, depth=tv.depth,
+                                with_probe=False, **KW)
     want = jlc.mapper_step_fused(jmap(m), jnp.asarray(db0), jnp.asarray(act0),
                                  jv.centroids, jv.idf, jnp.int32(KID), jnp.asarray(cam),
                                  k=jv.k, depth=jv.depth, with_probe=False, **KW)
@@ -274,10 +277,27 @@ def test_mapper_step_fused(run):
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
-    with pytest.raises(NotImplementedError, match="loop"):
-        tlc.mapper_step_fused(tms.from_numpy(m), torch.from_numpy(db0), torch.from_numpy(act0),
-                              tv.centroids, tv.idf, KID, torch.from_numpy(cam),
-                              k=tv.k, depth=tv.depth, with_probe=True)
+    db1, act1 = np.asarray(want[1]).copy(), np.asarray(want[2]).copy()
+    db1[KID], act1[KID] = 0.0, False
+    for i in range(KID):                  # the earlier keyframes' vectors
+        act1[i] = bool(m["kf_valid"][i])
+    db1[~act1] = 0.0
+    got = tlc.mapper_step_fused(tms.from_numpy(m), torch.from_numpy(db1.copy()),
+                                torch.from_numpy(act1.copy()), tv.centroids, tv.idf,
+                                KID, torch.from_numpy(cam), k=tv.k, depth=tv.depth,
+                                with_probe=True, prev_cand=2, **KW)
+    want = jlc.mapper_step_fused(jmap(m), jnp.asarray(db1), jnp.asarray(act1),
+                                 jv.centroids, jv.idf, jnp.int32(KID), jnp.asarray(cam),
+                                 k=jv.k, depth=jv.depth, with_probe=True,
+                                 prev_cand=jnp.int32(2), **KW)
+    assert_maps_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    pt, pj = got[3].numpy(), np.asarray(want[3])
+    np.testing.assert_array_equal(pt[[0, 1, 2, 6, 7, 8, 10, 11, 12]],
+                                  pj[[0, 1, 2, 6, 7, 8, 10, 11, 12]])
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-6)
+    assert pj[10] > 0                                      # n_bow of the best candidate
 
 
 @pytest.mark.parametrize("kid", [4, KID])

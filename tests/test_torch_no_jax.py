@@ -26,7 +26,9 @@ def test_port_module_list_covers_the_slice():
                 "tracking.tracker", "tracking.reloc", "models.map_state",
                 "io.synthetic", "evaluation", "config", "device",
                 "mapping.local_ba", "mapping.local_mapping", "mapping.loop_closing",
-                "mapping.map_ba", "models.vocabulary", "utils.smallmat"):
+                "mapping.map_ba", "models.vocabulary", "utils.smallmat",
+                "mapping.sim3", "mapping.pose_graph", "utils.lie",
+                "utils.sampling"):
         assert f"orbslam3lib_tpu_torch.{mod}" in names
 
 

@@ -57,7 +57,8 @@ def runs(fast_reference_brief):
     imgs, ts, rig = orbit_frames(N_FRAMES)
     jt = jtr.Tracker(backend_config(JCfg, rig), "stereo",
                      enable_loop_closing=False, pipeline=0)
-    tt = ttr.Tracker(backend_config(TCfg, rig), "stereo", device="cpu")
+    tt = ttr.Tracker(backend_config(TCfg, rig), "stereo", device="cpu",
+                     enable_loop_closing=False)
     culled = []
     real = tlm.cull_mappoints
 
@@ -148,7 +149,8 @@ def test_loss_timeout_matches_reference(fast_reference_brief):
     imgs, ts, rig = orbit_frames(N_TEXTURED + 2)
     jt = jtr.Tracker(backend_config(JCfg, rig), "stereo",
                      enable_loop_closing=False, pipeline=0)
-    tt = ttr.Tracker(backend_config(TCfg, rig), "stereo", device="cpu")
+    tt = ttr.Tracker(backend_config(TCfg, rig), "stereo", device="cpu",
+                     enable_loop_closing=False)
     rj, rt = _drive([jt, tt], _lost_sequence(imgs, ts))
     states = [(fj["state"], ft["state"]) for fj, ft in zip(rj, rt)]
     want = ([ttr.OK] * N_TEXTURED + [ttr.RECENTLY_LOST] * (N_BLANK - 1)
@@ -170,7 +172,8 @@ def test_loss_timeout_large_map_starts_a_new_one():
     Atlas. The port has no Atlas yet: it drops the old map, counts
     `n_new_maps`, and initialises again."""
     imgs, ts, rig = orbit_frames(26)
-    tt = ttr.Tracker(backend_config(TCfg, rig), "stereo", device="cpu")
+    tt = ttr.Tracker(backend_config(TCfg, rig), "stereo", device="cpu",
+                     enable_loop_closing=False)
     frames = _lost_sequence(imgs, ts, 24)
     for img, stamp in frames[:24]:
         tt.process_frame(img, float(stamp))

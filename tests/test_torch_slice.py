@@ -60,7 +60,8 @@ def _run_both(imgs, ts, rig, bad_prior=None):
         mp.setattr(jreloc, "track_reference_kf", counted)
         jt = jtr.Tracker(slice_config(JCfg, rig), "stereo",
                          enable_loop_closing=False, pipeline=0)
-        tt = ttr.Tracker(slice_config(TCfg, rig), "stereo", device="cpu")
+        tt = ttr.Tracker(slice_config(TCfg, rig), "stereo", device="cpu",
+                         enable_loop_closing=False)
         for i, (img, stamp) in enumerate(zip(imgs, ts)):
             if i == JOLT and bad_prior is not None:
                 jt.vel = tuple(jnp.asarray(x) for x in bad_prior)

@@ -36,14 +36,15 @@ def fast_reference_brief():
 SMALL_RIG = dict(fx=150.0, fy=150.0, cx=160.0, cy=100.0, width=320, height=200)
 
 
-def orbit_frames(n_frames: int, rig_kw=None, seed: int = 0):
+def orbit_frames(n_frames: int, rig_kw=None, seed: int = 0, period: float = 24.0):
     """bench.py's room-orbit sequence (world, trajectory, noise seed) at a
     reduced rig size, rendered with the port's numpy renderer (which renders
-    the same frames as the reference's, test_torch_config.py). Returns
-    (uint8 (n, 2, H, W), timestamps, rig)."""
+    the same frames as the reference's, test_torch_config.py); `period` 8 s
+    revisits the start after 120 frames. Returns (uint8 (n, 2, H, W),
+    timestamps, rig)."""
     from orbslam3lib_tpu_torch.io.synthetic import StereoRig, render_orbit_sequence
     rig = StereoRig(**(SMALL_RIG if rig_kw is None else rig_kw))
-    return render_orbit_sequence(n_frames, rig, seed)
+    return render_orbit_sequence(n_frames, rig, seed, period=period)
 
 
 def slice_config(cfg_cls, rig, max_kp: int = 256, n_levels: int = 4):
@@ -61,6 +62,19 @@ def slice_config(cfg_cls, rig, max_kp: int = 256, n_levels: int = 4):
     cfg.tracker.pose_iters = 2
     cfg.map.max_kf = 16
     cfg.map.max_mp = 2048
+    return cfg
+
+
+def loop_config(cfg_cls, rig):
+    """`slice_config` with room for a whole revolution of the small orbit
+    (64 KF / 4096 MP) and the back end's window cut to the small map (BA
+    window 3 + 2, 1024 points): the reference closes its loop there."""
+    cfg = slice_config(cfg_cls, rig)
+    cfg.map.max_kf = 64
+    cfg.map.max_mp = 4096
+    cfg.ba.window_size = 3
+    cfg.ba.n_fixed = 2
+    cfg.ba.max_points = 1024
     return cfg
 
 
@@ -111,3 +125,152 @@ def mapping_off():
         for cls in (jtr.Tracker, ttr.Tracker):
             mp.setattr(cls, "_mapping_pipeline", lambda self, *a, **k: None)
         yield
+
+
+def reference_draws(valid, n_hyp: int, size: int, seed: int = 0) -> np.ndarray:
+    """The indices the reference's RANSACs draw for a validity mask
+    (`jax.random.choice` with its key and weights, sim3.py:59-62,
+    reloc.py:67-71)."""
+    import jax
+    import jax.numpy as jnp
+    p = jnp.asarray(np.asarray(valid), jnp.float32)
+    p = p / jnp.maximum(jnp.sum(p), 1.0)
+    return np.asarray(jax.random.choice(jax.random.PRNGKey(seed), p.shape[0],
+                                        shape=(n_hyp, size), p=p))
+
+
+@contextlib.contextmanager
+def ransac_draws(draw):
+    """The port's RANSACs (`pnp_ransac`, `sim3_ransac`) take their
+    hypotheses from `draw(valid_numpy, n_hyp, size, seed)` (numpy indices)
+    in place of their sampler, on any device."""
+    import torch
+    from orbslam3lib_tpu_torch.mapping import sim3 as tsim
+    from orbslam3lib_tpu_torch.tracking import reloc as treloc
+
+    def draws(valid, n_hyp, size, seed=0, hyp_idx=None):
+        if hyp_idx is None:
+            hyp_idx = draw(valid.cpu().numpy(), n_hyp, size, seed)
+        return torch.as_tensor(np.asarray(hyp_idx), device=valid.device).long()
+
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (tsim, treloc):
+            mp.setattr(mod, "ransac_indices", draws)
+        yield
+
+
+def reference_ransac_draws():
+    """Whole runs of both packages see the same RANSAC samples: the port
+    draws the reference's (`reference_draws`)."""
+    return ransac_draws(reference_draws)
+
+
+def host_ransac_draws():
+    """The port's RANSACs draw on the CPU: the same hypotheses on the card
+    as on the CPU (the two devices' generators give different streams for
+    one seed). No JAX."""
+    import torch
+    from orbslam3lib_tpu_torch.utils.sampling import ransac_indices
+    return ransac_draws(lambda v, n, k, seed: ransac_indices(torch.from_numpy(v), n, k, seed))
+
+
+@contextlib.contextmanager
+def reference_single_device_gba():
+    """The reference's post-loop global BA on its single-device route
+    (`global_bundle_adjust`): under tests/conftest.py's virtual 8-device
+    mesh its `global_bundle_adjust_auto` would take the sharded one."""
+    from orbslam3lib_tpu.mapping import map_ba as jmb
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmb, "global_bundle_adjust_auto", jmb.global_bundle_adjust)
+        yield
+
+
+RING_CAM = np.array([300.0, 300.0, 320.0, 200.0], np.float32)
+
+
+def _ring_kf_pose(theta, radius=2.0):
+    c = np.array([radius * np.cos(theta), 0.0, radius * np.sin(theta)], np.float32)
+    fwd = np.array([np.cos(theta), 0.0, np.sin(theta)], np.float32)
+    right = np.cross(np.array([0.0, 1.0, 0.0], np.float32), fwd)
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd], axis=1).astype(np.float32).T
+    return R, -R @ c
+
+
+def ring_world(seed: int = 71, n_kf: int = 12, drift_per_kf: float = 0.012,
+               n_feat: int = 160, n_pts: int = 360):
+    """tests/test_loop_closing.py's drifted ring world as numpy map arrays,
+    built with numpy and the port's map model only (no JAX, so the card's
+    tests use it too): landmarks on a cylinder wall, keyframes on a circle
+    looking outward with accumulated drift, the last keyframe back at the
+    start with its own (duplicate) landmarks anchored in its drifted frame;
+    scale bands from the first keyframe's viewing distances, so
+    SearchBySim3 can predict levels. Unlike the reference's test, every
+    feature carries its true stereo depth, as the stereo slice's maps do:
+    without it the global BA after a correction has a free scale direction
+    (one fixed camera, mono edges) and amplifies f32 rounding to
+    millimetres. Returns (map arrays, true poses, descriptors)."""
+    import torch
+    from orbslam3lib_tpu_torch.models import map_state as tms
+    from orbslam3lib_tpu_torch.utils import lie as tl
+    F, cam = n_feat, RING_CAM
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, n_pts, endpoint=False)
+    pts = np.stack([6.0 * np.cos(ang), rng.uniform(-1.5, 1.5, n_pts),
+                    6.0 * np.sin(ang)], axis=1).astype(np.float32)
+    descs = rng.integers(0, 2, size=(n_pts, 256)).astype(np.int8)
+    m = tms.empty_map(max_kf=32, max_mp=1024, n_feat=F)
+    thetas = np.concatenate([np.linspace(0, 2 * np.pi, n_kf, endpoint=False), [0.02]])
+    true, est = [], []
+    drift = np.zeros(6, np.float32)
+    for i, th in enumerate(thetas):
+        R, t = _ring_kf_pose(th)
+        true.append((R, t))
+        if i > 0:
+            drift += (rng.normal(size=6) * drift_per_kf).astype(np.float32) * \
+                np.array([1, 1, 1, 0.3, 0.3, 0.3], np.float32)
+        dR, dt = tl.se3_exp(torch.from_numpy(drift))
+        Re, te = tl.se3_compose(dR, dt, torch.from_numpy(R), torch.from_numpy(t))
+        est.append((Re.numpy(), te.numpy()))
+    first = np.full(n_pts, -1, np.int32)
+    dup = {}
+    last = len(thetas) - 1
+    for i in range(len(thetas)):
+        R, t = true[i]
+        p_c = pts @ R.T + t
+        uv = np.stack([cam[0] * p_c[:, 0] / p_c[:, 2] + cam[2],
+                       cam[1] * p_c[:, 1] / p_c[:, 2] + cam[3]], axis=1)
+        ok = (p_c[:, 2] > 1.0) & (uv[:, 0] > 5) & (uv[:, 0] < 635) & \
+             (uv[:, 1] > 5) & (uv[:, 1] < 395)
+        sel = np.nonzero(ok)[0][:F]
+        n = len(sel)
+        xy = np.zeros((F, 2), np.float32)
+        desc = np.zeros((F, 256), np.int8)
+        fv = np.zeros(F, bool)
+        assoc = np.full(F, -1, np.int32)
+        depth = np.zeros(F, np.float32)
+        xy[:n], desc[:n], fv[:n], depth[:n] = uv[sel], descs[sel], True, p_c[sel, 2]
+        if i < last:
+            assoc[:n] = sel
+            first[sel[first[sel] < 0]] = i
+        else:
+            ids = 500 + np.arange(n, dtype=np.int32)
+            assoc[:n] = ids
+            dup = dict(zip(ids.tolist(), sel.tolist()))
+        tms.insert_keyframe(m, torch.from_numpy(est[i][0]), torch.from_numpy(est[i][1]),
+                            float(i), torch.from_numpy(xy), torch.zeros(F, dtype=torch.int32),
+                            torch.from_numpy(desc), torch.from_numpy(fv),
+                            torch.from_numpy(assoc), torch.from_numpy(depth))
+    arr = tms.to_numpy(m)
+    for p, k in [(p, first[p]) for p in range(n_pts) if first[p] >= 0] + \
+            [(d, last) for d in dup]:
+        src = dup.get(p, p) if k == last else p
+        (Rt_, tt_), (Re, te) = true[k], est[k]
+        arr["mp_pos"][p] = Re.T @ (Rt_ @ pts[src] + tt_ - te)
+        arr["mp_valid"][p], arr["mp_desc"][p], arr["mp_first_kf"][p] = True, descs[src], k
+    arr["n_mp"] = np.int32(arr["mp_valid"].sum())
+    c0 = -est[0][0].T @ est[0][1]
+    dist = np.linalg.norm(arr["mp_pos"] - c0, axis=1) + 1e-3
+    arr["mp_max_dist"] = dist.astype(np.float32)
+    arr["mp_min_dist"] = (dist / 5.0).astype(np.float32)
+    return arr, true, descs

@@ -56,7 +56,8 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     imgs, ts, rig = render_orbit_sequence(WARM + 2 * STEADY)
-    tr = Tracker(orbit_tracking_config(rig), "stereo", device=dev)
+    tr = Tracker(orbit_tracking_config(rig), "stereo", device=dev,
+                 enable_loop_closing=False)
     for i in range(WARM):
         tr.process_frame(imgs[i], float(ts[i]))
     torch.cuda.synchronize()
