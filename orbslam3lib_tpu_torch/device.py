@@ -54,3 +54,35 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def device_ms_per_launch(launch, n: int = 200, warm: int = 10,
+                         graph: bool = False) -> float:
+    """Device time per call of `launch()` in ms: CUDA events around n
+    back-to-back calls, after `warm` calls, divided by n. With `graph` the n
+    calls are captured once into a CUDA graph and the events bracket one
+    replay, so the host's cost of enqueueing a call cannot stretch the
+    reading; without it, a call that the host enqueues slower than the card
+    runs it reads the host's rate."""
+    for _ in range(warm):
+        launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                launch()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(n):
+            launch()
+        end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n

@@ -4,7 +4,8 @@ of `orbslam3lib_tpu/ops/pallas_matcher.py`.
 Same contract as the JAX `knn_match_fused`: (best (Na,) int32, d1, d2 (Na,)
 f32), BIG on invalid B columns inside the kernel and on invalid A rows
 afterwards, lowest column on ties. On a CPU tensor it returns the plain
-`matcher.knn_match`; on a CUDA tensor it launches the kernel or raises.
+`matcher.knn_match`; on a CUDA tensor it launches the kernel (one launch,
+which packs the bits itself: no scratch) or raises.
 """
 from __future__ import annotations
 
@@ -51,27 +52,34 @@ def knn_match_fused(a_bits: torch.Tensor, b_bits: torch.Tensor,
         return matcher.knn_match(a_bits, b_bits, a_valid, b_valid)
     if a_bits.device.type != "cuda":
         raise ValueError(f"unsupported device {a_bits.device}")
-    global launches
     dev = a_bits.device
-    na, nb = a_bits.shape[0], b_bits.shape[0]
-    av = _check_valid("a_valid", a_valid, na, dev)
-    bv = _check_valid("b_valid", b_valid, nb, dev)
-    a = a_bits.contiguous()
-    b = b_bits.contiguous()
-    a_packed = torch.empty((na, 8), dtype=torch.int32, device=dev)
-    b_packed = torch.empty((nb, 8), dtype=torch.int32, device=dev)
+    av = _check_valid("a_valid", a_valid, a_bits.shape[0], dev)
+    bv = _check_valid("b_valid", b_valid, b_bits.shape[0], dev)
+    out, launch = prepare_launch(a_bits.contiguous(), b_bits.contiguous(), av, bv)
+    launch()
+    return out
+
+
+def prepare_launch(a: torch.Tensor, b: torch.Tensor, av: torch.Tensor | None,
+                   bv: torch.Tensor | None):
+    """((best, d1, d2), launch) for checked contiguous CUDA bits and uint8
+    masks (or None): `launch()` runs the kernel once on the current stream
+    and counts the launch. `knn_match_fused` calls it once; a timing loop
+    may call it many times on the same buffers."""
+    dev, na, nb = a.device, a.shape[0], b.shape[0]
     best = torch.empty(na, dtype=torch.int32, device=dev)
     d1 = torch.empty(na, dtype=torch.float32, device=dev)
     d2 = torch.empty(na, dtype=torch.float32, device=dev)
     lib = _cuda_lib.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.knn2_launch(
-            a.data_ptr(), b.data_ptr(),
-            av.data_ptr() if av is not None else None,
-            bv.data_ptr() if bv is not None else None,
-            a_packed.data_ptr(), b_packed.data_ptr(), na, nb,
-            best.data_ptr(), d1.data_ptr(), d2.data_ptr(), stream)
-    _cuda_lib.check(err, "knn2_launch")
-    launches += 1
-    return best, d1, d2
+    ptrs = (a.data_ptr(), b.data_ptr(), av.data_ptr() if av is not None else None,
+            bv.data_ptr() if bv is not None else None, na, nb,
+            best.data_ptr(), d1.data_ptr(), d2.data_ptr())
+
+    def launch() -> None:
+        global launches
+        with torch.cuda.device(dev):
+            err = lib.knn2_launch(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+        _cuda_lib.check(err, "knn2_launch")
+        launches += 1
+
+    return (best, d1, d2), launch

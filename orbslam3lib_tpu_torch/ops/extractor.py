@@ -1,8 +1,8 @@
 """ORB extraction: pyramid -> FAST+NMS (kernel 1) -> per-tile top-K ->
 global top-K -> orientation -> BRIEF (port of `orbslam3lib_tpu/ops/extractor.py`).
 
-The two eyes of a stereo pair are a batch dimension all the way through, so
-kernel 1 runs once per pyramid level for both eyes. Output is the same
+The two eyes of a stereo pair are a batch dimension all the way through, and
+kernel 1 runs once per frame, over every pyramid level of both eyes. Output is the same
 fixed-capacity masked `Features` record as the reference, field for field
 and dtype for dtype.
 """
@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from . import fast, pyramid
-from .cuda_fast import fast_scores_nms
+from .cuda_fast import fast_scores_nms_levels
 from .orient_brief import RAW_RADIUS, orient_and_brief
 
 # Reference tile geometry: 128 wide x 80 high, top-16 per tile
@@ -39,13 +39,6 @@ class Features:
     @property
     def n_valid(self) -> torch.Tensor:
         return torch.sum(self.valid.to(torch.int32), dim=-1)
-
-
-def _detect_level(img_l: torch.Tensor):
-    """(B, H, W) pyramid level -> per-tile top-K candidates (score, y, x),
-    each (B, T*K). Kernel 1 on a CUDA tensor, its plain version on the CPU."""
-    score = fast_scores_nms(img_l, margin=DETECT_MARGIN)
-    return fast.tile_topk(score, TILE_H, TILE_W, TILE_K)
 
 
 def _canvas(levels: List[torch.Tensor], h0: int, w0: int) -> torch.Tensor:
@@ -71,9 +64,12 @@ def extract_orb_stereo(img_pair: torch.Tensor, threshold: float,
     levels = pyramid.build_pyramid(img_pair, n_levels)
     scales = pyramid.scale_factors_on(n_levels, dev)
 
+    # kernel 1 on CUDA tensors (one launch), its plain version on the CPU;
+    # then per level the per-tile top-K candidates (score, y, x), (B, T*K)
+    scores = fast_scores_nms_levels(levels, DETECT_MARGIN)
     cand_s, cand_y, cand_x, cand_l = [], [], [], []
-    for lvl, img_l in enumerate(levels):
-        s, y, x = _detect_level(img_l)
+    for lvl, score in enumerate(scores):
+        s, y, x = fast.tile_topk(score, TILE_H, TILE_W, TILE_K)
         cand_s.append(s)
         cand_y.append(y)
         cand_x.append(x)

@@ -51,11 +51,37 @@ def test_fast_kernel_matches_plain_on_card(cuda_device, h, w, margin):
     assert torch.equal(got, cuda_fast.fast_scores_nms_plain(img, margin))
 
 
+# every reference level at once; widths that are not multiples of 4, a
+# level smaller than a tile and one of a single pixel
+LEVEL_LISTS = {"reference": LEVEL_CASES,
+               "odd": [(127, 203, 3), (101, 161, 3), (37, 314, 3), (5, 7, 3), (1, 1, 3)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(LEVEL_LISTS))
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_fast_levels_kernel_matches_plain_on_card(cuda_device, which, dtype):
+    """All levels in one launch, each level bit-exact against the plain
+    version, on integer and on fractional images."""
+    cases = LEVEL_LISTS[which]
+    g = torch.Generator().manual_seed(len(cases))
+    margin = cases[0][2]
+    levels = [(torch.rand((2, h, w), generator=g) * 255.0).to(dtype).to(cuda_device)
+              for h, w, _ in cases]
+    before = cuda_fast.launches
+    got = cuda_fast.fast_scores_nms_levels(levels, margin)
+    torch.cuda.synchronize()
+    assert cuda_fast.launches == before + 1
+    for out, lvl in zip(got, levels):
+        assert out.shape == lvl.shape and out.is_contiguous()
+        assert torch.equal(out, cuda_fast.fast_scores_nms_plain(lvl, margin))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("na,nb,masked", [(64, 64, True), (300, 450, True),
                                           (512, 1024, True), (100, 200, False),
                                           (512, 512, True), (1, 1, True),
-                                          (33, 3000, True)])
+                                          (33, 3000, True), (3, 16500, True)])
 def test_knn_kernel_matches_plain_on_card(cuda_device, na, nb, masked):
     a, b, av, bv = (None if x is None else torch.from_numpy(x).to(cuda_device)
                     for x in _bits(np.random.default_rng(na + nb), na, nb, masked))
@@ -63,6 +89,19 @@ def test_knn_kernel_matches_plain_on_card(cuda_device, na, nb, masked):
     got = cuda_matcher.knn_match_fused(a, b, av, bv)
     torch.cuda.synchronize()
     assert cuda_matcher.launches == before + 1
+    for g, w in zip(got, matcher.knn_match(a, b, av, bv)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_on_unaligned_rows(cuda_device):
+    """Bits whose base is not 16-byte aligned take the kernel's byte loads."""
+    a, b, av, bv = (torch.from_numpy(x).to(cuda_device)
+                    for x in _bits(np.random.default_rng(7), 70, 600, True))
+    a_off = torch.empty(70 * 256 + 3, dtype=torch.int8, device=cuda_device)[3:].view(70, 256)
+    a_off.copy_(a)
+    assert a_off.data_ptr() % 16 != 0
+    got = cuda_matcher.knn_match_fused(a_off, b, av, bv)
     for g, w in zip(got, matcher.knn_match(a, b, av, bv)):
         assert torch.equal(g, w)
 

@@ -90,7 +90,8 @@ def _j(x):
 
 @pytest.mark.parametrize("na,nb,masked", [(64, 64, True), (300, 450, True),
                                           (512, 1024, True), (100, 200, False),
-                                          (512, 512, True)])
+                                          (512, 512, True), (1, 1, True),
+                                          (33, 3000, True), (5, 16500, True)])
 def test_knn_plain_bit_exact(na, nb, masked):
     rng = np.random.default_rng(na * 1000 + nb)
     a, b, av, bv = _bits(rng, na, nb, masked)
@@ -148,6 +149,7 @@ def test_cpu_path_launches_no_kernel():
     cuda_fast.reset_count()
     cuda_matcher.reset_count()
     cuda_fast.fast_scores_nms(torch.zeros((32, 32)), 3)
+    cuda_fast.fast_scores_nms_levels([torch.zeros((2, 32, 32)), torch.zeros((2, 16, 24))], 3)
     bits = torch.zeros((4, 256), dtype=torch.int8)
     cuda_matcher.knn_match_fused(bits, bits)
     assert cuda_fast.launches == 0 and cuda_matcher.launches == 0

@@ -11,7 +11,8 @@ chip_smoke.py does, without its jolt), and after WARM frames:
   * profiles the next STEADY frames with torch.profiler: device busy time
     per frame (the sum of CUDA kernel and copy events, each counted once),
     the device's idle share against the un-profiled frame time, device
-    events and cudaLaunchKernel calls per frame, and the tables of
+    events and cudaLaunchKernel calls per frame, the port's own kernels by
+    name (calls per frame, device ms per call), and the tables of
     key_averages() by device and by host time;
   * profiles one more run of the per-keyframe back end
     (`Tracker._mapping_pipeline`) on the last keyframe: its host time,
@@ -30,6 +31,7 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 WARM, STEADY = 30, 15
+PORT_KERNELS = ("fast_nms_levels_kernel", "knn2_kernel")
 
 
 def device_counts(ka):
@@ -89,6 +91,16 @@ def main() -> int:
           f"{busy_ms:.3f} ms/frame; idle share {1.0 - busy_ms / wall_ms:.3f}; "
           f"device events {n_dev:.0f}/frame; cudaLaunchKernel {n_launch:.0f}/frame; "
           f"stats {tr.stats}")
+    ours = {k: [0, 0.0] for k in PORT_KERNELS}
+    for e in ka:
+        for k in PORT_KERNELS:
+            if k in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+                ours[k][0] += e.count
+                ours[k][1] += e.self_device_time_total / 1e3
+    print("port kernels (profiled): " + "; ".join(
+        f"{k} {n / STEADY:.2f} calls/frame, "
+        + (f"{ms / n:.5f} ms device per call" if n else "not run")
+        for k, (n, ms) in ours.items()))
     print(f"back end of one keyframe (profiled): {kf_ms:.3f} ms host; device busy "
           f"{kf_busy:.3f} ms; device events {kf_dev:.0f}; cudaLaunchKernel "
           f"{kf_launch:.0f}")
