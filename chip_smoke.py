@@ -55,33 +55,62 @@ Phases, each fatal on failure:
      waiting on the card from the host, at most max_mp landmarks, finite
      poses, and the ATE of the trajectory and of the loop-corrected
      keyframes against the analytic orbit within their bounds.
+  4. D, raw radial-tangential stereo: bench.py's `distorted` rig (DIST)
+     on the orbit, N_RADTAN frames through `System(cfg, "stereo")
+     .track_stereo` with `cfg.stereo.rectify`: the maps are built once, the
+     remap runs on the card every frame without a host sync, kernel 1 once
+     per frame and bit-exact on a rectified frame's 8 levels, state OK with
+     no failure, the trajectory's ATE and the loops against the reference's
+     (REF_RADTAN), and `save_trajectory_tum` writes a line per frame; the
+     remap's device ms per frame is printed.
+  5. F, two-camera Kannala-Brandt stereo (`cfg.stereo.fisheye`, the rig of
+     tests/test_fisheye_stereo.py::test_e2e_kb8_stereo) on the orbit,
+     N_KB8 frames through `System.track_stereo`: state OK, no failure,
+     kernel 1 once per frame, ATE against the reference's (REF_KB8).
+  6. C, compaction: the first N_COMPACT frames of phase 3's orbit with
+     24 keyframe and 2,048 landmark slots and a keyframe on every frame,
+     through `System.track_stereo`: at least one compaction, more than 36
+     keyframes made, at most 24 held, state OK with no failure, and after
+     every compaction the loop closer's and the database's ids inside the
+     live slots.
+  Phases 4-6 each reset the launch counters just before their frames and
+  read them just after; each kernel must launch on each of them (counts in
+  the kernels line, `launches_by_path`). The sequences render in three
+  processes started before the card is used.
 
 The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}. Without a CUDA device it
-exits non-zero and prints no result. Imports nothing of JAX.
+exits non-zero and prints no result. Imports nothing of JAX. Reference
+numbers: `tools/reference_smoke.py` (the JAX tracker on the CPU, same
+frames and configurations).
 """
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import re
 import sys
+import tempfile
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
 
 N_FRAMES = 400
-# The JAX reference on the CPU, on these 400 frames without the jolt
+# The JAX reference on the CPU, on these frames with the jolt and the kidnap
 # (`Tracker(cfg, "stereo", enable_loop_closing=True, pipeline=0)`, bench.py's
-# configuration): its first and only loop closes at frame 343, keyframe 27
-# against keyframe 1; ATE 0.0332 m on the trajectory and 0.0242 m on the
-# corrected keyframes. Bounds: x 1.5 + 5 mm (PERF.md).
+# configuration; tools/reference_smoke.py --phase pinhole): its first and
+# only loop closes at frame 343, keyframe 27 against keyframe 1; ATE
+# 0.034051 m on the trajectory and 0.019995 m on the corrected keyframes;
+# the kidnapped frame relocalises. Bounds: x 1.5 + 5 mm (PERF.md).
 REF_N_LOOPS = 1
 REF_LOOP_EDGE = (1, 27)
-ATE_BOUND_M = 0.0548
-KF_ATE_BOUND_M = 0.0413
+ATE_BOUND_M = 0.0561
+KF_ATE_BOUND_M = 0.0350
 # The frame before which the constant-velocity prior is replaced by
 # JOLT_PRIOR: 0.2 rad about the camera's y axis and 0.3 m sideways. Searched
 # from there, the frame finds too few inliers; the fallback re-seeds from
@@ -93,6 +122,23 @@ JOLT_PRIOR = ((0.0, 0.2, 0.0), (0.3, 0.0, 0.0))
 # it, with the timestamps that follow the run's last.
 KIDNAP_BACK = 180
 KIDNAP_POSE_M = 0.05
+
+# Phases D, F and C: bench.py's raw-rig distortion, the fisheye rig of
+# tests/test_fisheye_stereo.py, and the compaction capacities of
+# tests/test_compaction.py::test_long_sequence_with_recycling.
+DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
+KB8_RIG = dict(fx=285.0, fy=285.0, model="kannala_brandt8", k=(0.02, -0.01, 0.003, 0.0))
+N_RADTAN = 400
+N_KB8 = 180
+N_COMPACT = 150
+COMPACT_MAX_KF = 24
+COMPACT_MAX_MP = 2048
+# The JAX reference on the CPU at each phase's configuration and frames
+# (tools/reference_smoke.py): trajectory ATE (m), loops and loop pair. The
+# bounds are x 1.5 + 5 mm, as phase 3's.
+REF_RADTAN = {"ate_m": 0.034740, "n_loops": 1, "loop_edges": [[0, 27]]}   # loop at frame 343
+REF_KB8 = {"ate_m": 0.015875}                                             # no loop in 180 frames
+REF_COMPACT = {"ate_m": 0.027008}                                         # 147 KFs, 28 compactions
 
 FAST_SHAPES = [(400, 640), (320, 512), (240, 384), (196, 314), (160, 256),
                (127, 203), (101, 161), (80, 128)]
@@ -366,15 +412,230 @@ def kf_ate(m, origin: float):
     return ate_rmse(est, gt), (R_a, t_a)
 
 
+def render(n: int, rig_kw: dict):
+    """bench.py's orbit sequence for a StereoRig(**rig_kw) (numpy only; runs
+    in a worker process)."""
+    from orbslam3lib_tpu_torch.io.synthetic import StereoRig, render_orbit_sequence
+    t0 = time.perf_counter()
+    imgs, ts, rig = render_orbit_sequence(n, StereoRig(**rig_kw))
+    return imgs, ts, rig, time.perf_counter() - t0
+
+
+def ate_within(ate: float, ref) -> bool:
+    """ATE against the reference's x 1.5 + 5 mm."""
+    return ref is not None and ate <= 1.5 * ref + 0.005
+
+
+def run_system(cfg, frames, dev, setup=None):
+    """Drive `System(cfg, "stereo").track_stereo` over (image, stamp)
+    frames on the card, each frame synchronised. `setup(system)` runs after
+    the system is built and before the counters are zeroed. Returns the
+    system, the per-frame results and host ms, and the kernel launches made
+    during the frames."""
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
+    from orbslam3lib_tpu_torch.system import System
+    sys_ = System(cfg, "stereo", device=dev)
+    if setup is not None:
+        setup(sys_)
+    torch.cuda.synchronize()
+    cuda_fast.reset_count()
+    cuda_matcher.reset_count()
+    results, frame_ms = [], []
+    for img, stamp in frames:
+        t0 = time.perf_counter()
+        results.append(sys_.track_stereo(img, stamp))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"fast_scores_nms": cuda_fast.launches,
+                "knn_match_fused": cuda_matcher.launches}
+    sys_.shutdown()
+    return sys_, results, frame_ms, launches
+
+
+def trajectory_ate(tracker, ts) -> float:
+    from orbslam3lib_tpu_torch.evaluation import ate_rmse
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_pose_at
+    c = tracker.trajectory_centers()
+    t = np.asarray([f[0] for f in tracker.trajectory])
+    return ate_rmse(c, orbit_pose_at(t, period=24.0, radius=0.5)[1]) if len(c) >= 3 \
+        else float("inf")
+
+
+def path_line(name, frame_ms, sys_, launches, ate, extra="") -> str:
+    st = sys_.get_stats()
+    return (f"[smoke] {name}: {len(frame_ms)} frames, median {np.median(frame_ms):.2f} ms, "
+            f"p90 {np.percentile(frame_ms, 90):.2f} ms per frame; KFs {st['n_kf']} made, "
+            f"map {sys_.map_info()}; track_fail {st['track_fail']}, loops {st['n_loops']} "
+            f"{sys_.tracker.loop_closer.loop_edges}; ATE {ate:.6f} m; launches {launches}"
+            + extra)
+
+
+def phase_radtan(dev, imgs, ts):
+    """Phase D: the raw radial-tangential pair rectified on the card."""
+    from orbslam3lib_tpu_torch.device import device_ms_per_launch
+    from orbslam3lib_tpu_torch.io.synthetic import StereoRig, orbit_tracking_config
+    from orbslam3lib_tpu_torch.ops import cuda_fast, pyramid
+    from orbslam3lib_tpu_torch.ops.extractor import DETECT_MARGIN
+    from orbslam3lib_tpu_torch.utils import rectify
+    rig = StereoRig(dist=DIST)
+    cfg = orbit_tracking_config(rig)
+    cfg.camera.dist = DIST
+    cfg.stereo.rectify = True
+    builds = []
+    real_rectify = rectify.stereo_rectify
+    rectify.stereo_rectify = lambda *a, **k: builds.append(1) or real_rectify(*a, **k)
+    box = {}
+
+    def setup(sys_):
+        box["remap"] = sys_.tracker._remap
+        box["timer"] = StepTimer(sys_.tracker._remap)
+        sys_.tracker._remap = box["timer"]
+
+    try:
+        sys_, results, frame_ms, launches = run_system(
+            cfg, [(imgs[i], float(ts[i])) for i in range(len(imgs))], dev, setup)
+    finally:
+        rectify.stereo_rectify = real_rectify
+    tr, remap = sys_.tracker, box["remap"]
+    # kernel 1 on a rectified frame's 8 levels, bit-exact (after the counts)
+    raw = torch.as_tensor(imgs[len(imgs) // 2], device=dev)
+    levels = pyramid.build_pyramid(remap(raw), 8)
+    got = cuda_fast.fast_scores_nms_levels(levels, DETECT_MARGIN)
+    want = cuda_fast.fast_scores_nms_levels_plain(levels, DETECT_MARGIN)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    frac = bool((levels[0] != torch.round(levels[0])).any())
+    remap_ms = device_ms_per_launch(lambda: remap(raw), N_TIMED, graph=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "radtan_tum.txt")
+        sys_.save_trajectory_tum(path)
+        n_lines = len(open(path).read().strip().splitlines())
+    ate = trajectory_ate(tr, ts)
+    st = sys_.get_stats()
+    log(path_line("D (raw radtan stereo, rectified on the card)", frame_ms, sys_,
+                  launches, ate,
+                  f"; remap: {len(box['timer'].events)} calls, host syncs "
+                  f"{len(box['timer'].syncs)}, device {remap_ms:.5f} ms per frame (graph of "
+                  f"{N_TIMED}); maps built {len(builds)} time(s); rectified camera "
+                  f"{cfg.camera.params.tolist()}, baseline {cfg.stereo.baseline:.6f}"))
+    print(f"D radtan: median {np.median(frame_ms):.2f} ms, p90 "
+          f"{np.percentile(frame_ms, 90):.2f} ms per frame; remap device "
+          f"{remap_ms:.5f} ms per frame; ATE {ate:.6f} m")
+    ref = REF_RADTAN
+    checks = {
+        "D: maps built once": len(builds) == 1,
+        "D: remap on every frame, no host sync":
+            len(box["timer"].events) == len(imgs) and not box["timer"].syncs,
+        "D: kernel 1 once per frame": launches["fast_scores_nms"] == len(imgs),
+        "D: kernel 2 launched": launches["knn_match_fused"] >= 1,
+        "D: kernel 1 bit-exact on a rectified frame (fractional level 0)": exact and frac,
+        "D: state OK, no failure": all(r["state"] == 1 for r in results)
+            and st["track_fail"] == 0,
+        "D: ATE within the reference's bound": ate_within(ate, ref["ate_m"]),
+        "D: the reference's loops": st["n_loops"] == ref["n_loops"]
+            and [list(e) for e in tr.loop_closer.loop_edges] == ref["loop_edges"],
+        "D: one TUM line per frame": n_lines == len(imgs),
+    }
+    return checks, launches, err
+
+
+def phase_kb8(dev, imgs, ts):
+    """Phase F: two-camera Kannala-Brandt stereo."""
+    from orbslam3lib_tpu_torch.config import CameraConfig
+    from orbslam3lib_tpu_torch.io.synthetic import StereoRig, orbit_tracking_config
+    rig = StereoRig(**KB8_RIG)
+    cfg = orbit_tracking_config(rig)
+    cfg.camera = CameraConfig(model="kannala_brandt8", fx=rig.fx, fy=rig.fy, cx=rig.cx,
+                              cy=rig.cy, k=tuple(rig.k), width=rig.width, height=rig.height)
+    cfg.stereo.fisheye = True
+    sys_, results, frame_ms, launches = run_system(
+        cfg, [(imgs[i], float(ts[i])) for i in range(len(imgs))], dev)
+    ate = trajectory_ate(sys_.tracker, ts)
+    st = sys_.get_stats()
+    log(path_line("F (two-camera KB8 stereo)", frame_ms, sys_, launches, ate))
+    print(f"F kb8: median {np.median(frame_ms):.2f} ms, p90 "
+          f"{np.percentile(frame_ms, 90):.2f} ms per frame; ATE {ate:.6f} m")
+    checks = {
+        "F: state OK, no failure": all(r["state"] == 1 for r in results)
+            and st["track_fail"] == 0,
+        "F: kernel 1 once per frame": launches["fast_scores_nms"] == len(imgs),
+        "F: kernel 2 launched": launches["knn_match_fused"] >= 1,
+        "F: ATE within the reference's bound": ate_within(ate, REF_KB8["ate_m"]),
+    }
+    return checks, launches
+
+
+def phase_compact(dev, imgs, ts, rig):
+    """Phase C: compaction at small capacities with dense keyframing."""
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_tracking_config
+    cfg = orbit_tracking_config(rig)
+    cfg.map.max_kf = COMPACT_MAX_KF
+    cfg.map.max_mp = COMPACT_MAX_MP
+    cfg.ba.max_points = 1024              # local BA's points must fit the slots
+    cfg.tracker.min_frames_between_kf = 1
+    cfg.tracker.kf_ref_ratio = 10.0
+    ids_ok = []
+
+    def setup(sys_):
+        tr = sys_.tracker
+        real = tr._compact_map
+
+        def checked():
+            done = real()
+            if done:
+                n, lc = int(tr.map.n_kf), tr.loop_closer
+                ids_ok.append(
+                    all(0 <= i < n and 0 <= j < n for i, j in lc.loop_edges)
+                    and lc.last_loop_kf < n and 0 <= tr.last_kf_id < n
+                    and torch.equal(tr.place_rec.active, tr.map.kf_valid))
+            return done
+        tr._compact_map = checked
+
+    sys_, results, frame_ms, launches = run_system(
+        cfg, [(imgs[i], float(ts[i])) for i in range(len(imgs))], dev, setup)
+    ate = trajectory_ate(sys_.tracker, ts)
+    st = sys_.get_stats()
+    log(path_line("C (compaction, 24 KF / 2048 MP slots)", frame_ms, sys_, launches, ate,
+                  f"; compactions {st['n_compactions']}, ids valid after each: {ids_ok}"))
+    print(f"C compaction: median {np.median(frame_ms):.2f} ms, p90 "
+          f"{np.percentile(frame_ms, 90):.2f} ms per frame; {st['n_compactions']} "
+          f"compactions; {st['n_kf']} KFs made; ATE {ate:.6f} m")
+    checks = {
+        "C: at least one compaction": st["n_compactions"] >= 1,
+        "C: more than 36 keyframes made": st["n_kf"] > 36,
+        "C: at most 24 keyframes held": int(sys_.tracker.map.n_kf) <= COMPACT_MAX_KF,
+        "C: state OK, no failure": all(r["state"] == 1 for r in results)
+            and st["track_fail"] == 0,
+        "C: loop closer and database ids valid after each compaction":
+            bool(ids_ok) and all(ids_ok),
+        "C: kernel 1 once per frame": launches["fast_scores_nms"] == len(imgs),
+        "C: kernel 2 launched": launches["knn_match_fused"] >= 1,
+        "C: ATE within the reference's bound": ate_within(ate, REF_COMPACT["ate_m"]),
+    }
+    return checks, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("[smoke] CUDA is not available: this smoke test needs one CUDA card")
         return 2
+    t_start = time.perf_counter()
+    # the sequences render in worker processes, forked before CUDA is used
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("fork"))
+    try:
+        jobs = {"pinhole": pool.submit(render, N_FRAMES, {}),
+                "radtan": pool.submit(render, N_RADTAN, {"dist": DIST}),
+                "kb8": pool.submit(render, N_KB8, KB8_RIG)}
+        return run(jobs, t_start)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run(jobs, t_start) -> int:
     from orbslam3lib_tpu_torch.device import card_line, device_ms_per_launch
     from orbslam3lib_tpu_torch.evaluation import ate_rmse
-    from orbslam3lib_tpu_torch.io.synthetic import (orbit_pose_at,
-                                                    orbit_tracking_config,
-                                                    render_orbit_sequence)
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_pose_at, orbit_tracking_config
     from orbslam3lib_tpu_torch.mapping import loop_closing as lc_mod
     from orbslam3lib_tpu_torch.ops import _cuda_lib, cuda_fast, cuda_matcher, pyramid
     from orbslam3lib_tpu_torch.ops.extractor import extract_orb_stereo
@@ -395,8 +656,9 @@ def main() -> int:
 
     # -- 2. kernels vs their plain versions --------------------------------
     t0 = time.perf_counter()
-    imgs, ts, rig = render_orbit_sequence(N_FRAMES)
-    log(f"[smoke] rendered {N_FRAMES} stereo frames in {time.perf_counter() - t0:.1f} s")
+    imgs, ts, rig, render_s = jobs["pinhole"].result()
+    log(f"[smoke] rendered {N_FRAMES} stereo frames in {render_s:.1f} s (waited "
+        f"{time.perf_counter() - t0:.1f} s)")
     gen = torch.Generator().manual_seed(0)
     rendered = pyramid.build_pyramid(torch.as_tensor(imgs[0], device=dev), 8)
     fast_err = check_fast(dev, gen, rendered)
@@ -434,6 +696,9 @@ def main() -> int:
     lc_mod.verify_loop_fused = timers["verify_loop_fused"]
     lc_mod.global_bundle_adjust = timers["global_bundle_adjust"]
     correct_t = timers["correct"]
+    originals = (ttr.mapper_step_fused, ttr._local_ba, lc_mod.loop_probe,
+                 lc_mod.verify_loop_fused, lc_mod.global_bundle_adjust,
+                 lc_mod.LoopCloser.correct)
     lc_mod.LoopCloser.correct = lambda self, *a, **k: correct_t(self, *a, **k)
     tracker = Tracker(cfg, sensor="stereo", device=dev)
     jolt = (lie.so3_exp(torch.tensor(JOLT_PRIOR[0], device=dev)),
@@ -465,6 +730,9 @@ def main() -> int:
     launches = {"fast_scores_nms": cuda_fast.launches,
                 "knn_match_fused": cuda_matcher.launches}
     torch.cuda.synchronize()
+    # the later phases run unpatched
+    (ttr.mapper_step_fused, ttr._local_ba, lc_mod.loop_probe, lc_mod.verify_loop_fused,
+     lc_mod.global_bundle_adjust, lc_mod.LoopCloser.correct) = originals
 
     st = tracker.stats
     med, p90 = np.percentile(frame_ms, 50), np.percentile(frame_ms, 90)
@@ -558,6 +826,26 @@ def main() -> int:
         "ATE within bound": ate <= ATE_BOUND_M,
         "keyframe ATE within bound": kf_ate_m <= KF_ATE_BOUND_M,
     }
+
+    # -- 4-6. the distorted rigs and compaction, through System ---------------
+    by_path = {"stereo": launches}
+    imgs_d, ts_d, _, render_d = jobs["radtan"].result()
+    c, by_path["radtan"], rect_err = phase_radtan(dev, imgs_d, ts_d)
+    checks.update(c)
+    fast_err = max(fast_err, rect_err)
+    del imgs_d
+    imgs_f, ts_f, _, render_f = jobs["kb8"].result()
+    c, by_path["kb8"] = phase_kb8(dev, imgs_f, ts_f)
+    checks.update(c)
+    del imgs_f
+    c, by_path["compaction"] = phase_compact(dev, imgs[:N_COMPACT], ts[:N_COMPACT], rig)
+    checks.update(c)
+    for path, counts in by_path.items():
+        for name, n in counts.items():
+            checks[f"{name} launched on the {path} path"] = n >= 1
+    log(f"[smoke] rendering (in worker processes): radtan {render_d:.1f} s, kb8 "
+        f"{render_f:.1f} s; command so far {time.perf_counter() - t_start:.1f} s")
+
     failed = [k for k, v in checks.items() if not v]
     if failed:
         log(f"[smoke] FAILED: {failed}")
@@ -568,12 +856,15 @@ def main() -> int:
         {"name": "fast_scores_nms", "route": "cuda", "source": src + "fast_nms.cu",
          "replaces": "orbslam3lib_tpu/ops/pallas_fast.py:92",
          "launches": launches["fast_scores_nms"], "max_abs_err": fast_err,
-         **fast_t, "library_ms": None, "ptxas": ptxas.get("fast_nms_levels_kernel")},
+         **fast_t, "library_ms": None, "ptxas": ptxas.get("fast_nms_levels_kernel"),
+         "launches_by_path": {p: c["fast_scores_nms"] for p, c in by_path.items()}},
         {"name": "knn_match_fused", "route": "cuda", "source": src + "knn2.cu",
          "replaces": "orbslam3lib_tpu/ops/pallas_matcher.py:77",
          "launches": launches["knn_match_fused"], "max_abs_err": knn_err,
-         **knn_t, "library_ms": None, "ptxas": ptxas.get("knn2_kernel")},
+         **knn_t, "library_ms": None, "ptxas": ptxas.get("knn2_kernel"),
+         "launches_by_path": {p: c["knn_match_fused"] for p, c in by_path.items()}},
     ]}
+    log(f"[smoke] total command time {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -116,6 +116,21 @@ class _NoiseTexture:
         return out / amp_sum
 
 
+def ray_grid(rig: StereoRig) -> np.ndarray:
+    """(H, W, 3) z = 1 camera rays of every pixel of the rig's camera."""
+    H, W = rig.height, rig.width
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32),
+                       np.arange(H, dtype=np.float32))
+    if rig.model == "kannala_brandt8":
+        uv = np.stack([u.reshape(-1), v.reshape(-1)], axis=-1)
+        return _kb8_unproject(rig.params, uv).reshape(H, W, 3)
+    if any(d != 0.0 for d in rig.dist):
+        uv = np.stack([u.reshape(-1), v.reshape(-1)], axis=-1)
+        return _radtan_unproject(rig.params, uv).reshape(H, W, 3)
+    return np.stack([(u - rig.cx) / rig.fx, (v - rig.cy) / rig.fy,
+                     np.ones_like(u)], axis=-1)
+
+
 @dataclass
 class CorridorWorld:
     """Axis-aligned corridor: x in [-hw, hw], y in [-hh, hh], z in [z0, z1].
@@ -136,21 +151,13 @@ class CorridorWorld:
         self.tex = [_NoiseTexture(s + i, base_scale=3.0) for i in range(6)]
 
     def render(self, R_cw: np.ndarray, c_w: np.ndarray, rig: StereoRig,
-               noise_sigma: float = 1.5, rng=None) -> np.ndarray:
+               noise_sigma: float = 1.5, rng=None, rays=None) -> np.ndarray:
         """Render one grayscale image for camera with world-from-cam rotation
-        R_cw (3,3) and center c_w (3,). Returns (H, W) float32 in [0, 255]."""
+        R_cw (3,3) and center c_w (3,). `rays`: the rig's `ray_grid`, when the
+        caller has it (it does not change between frames). Returns (H, W)
+        float32 in [0, 255]."""
         H, W = rig.height, rig.width
-        u, v = np.meshgrid(np.arange(W, dtype=np.float32),
-                           np.arange(H, dtype=np.float32))
-        if rig.model == "kannala_brandt8":
-            uv = np.stack([u.reshape(-1), v.reshape(-1)], axis=-1)
-            d_c = _kb8_unproject(rig.params, uv).reshape(H, W, 3)
-        elif any(d != 0.0 for d in rig.dist):
-            uv = np.stack([u.reshape(-1), v.reshape(-1)], axis=-1)
-            d_c = _radtan_unproject(rig.params, uv).reshape(H, W, 3)
-        else:
-            d_c = np.stack([(u - rig.cx) / rig.fx, (v - rig.cy) / rig.fy,
-                            np.ones_like(u)], axis=-1)  # (H,W,3)
+        d_c = ray_grid(rig) if rays is None else rays
         d_w = d_c @ R_cw.T
         o = c_w
 
@@ -274,11 +281,12 @@ def render_orbit_sequence(n_frames: int, rig: StereoRig | None = None,
     world = CorridorWorld(half_w=4.0, half_h=1.5, z0=-4.0, z1=4.0, back_wall=True)
     R_l, c_l, ts = orbit_trajectory(n_frames, dt=1.0 / 15.0, period=period, radius=0.5)
     rng = np.random.default_rng(seed)
+    rays = ray_grid(rig)
     imgs = np.zeros((n_frames, 2, rig.height, rig.width), np.uint8)
     for i in range(n_frames):
         c_r = c_l[i] + R_l[i] @ np.array([rig.baseline, 0, 0], np.float32)
-        imgs[i, 0] = world.render(R_l[i], c_l[i], rig, rng=rng).astype(np.uint8)
-        imgs[i, 1] = world.render(R_l[i], c_r, rig, rng=rng).astype(np.uint8)
+        imgs[i, 0] = world.render(R_l[i], c_l[i], rig, rng=rng, rays=rays).astype(np.uint8)
+        imgs[i, 1] = world.render(R_l[i], c_r, rig, rng=rng, rays=rays).astype(np.uint8)
     return imgs, ts, rig
 
 
@@ -306,12 +314,13 @@ def render_stereo_sequence(n_frames: int, rig: StereoRig | None = None,
     world = world or CorridorWorld()
     R_cw_list, c_w_list, ts = corridor_trajectory(n_frames, dt=dt)
     rng = np.random.default_rng(seed)
+    rays = ray_grid(rig)
     frames = []
     for i in range(n_frames):
         R_cw, c_w = R_cw_list[i], c_w_list[i]
         c_right = c_w + R_cw @ np.array([rig.baseline, 0, 0], dtype=np.float32)
-        img_l = world.render(R_cw, c_w, rig, rng=rng)
-        img_r = world.render(R_cw, c_right, rig, rng=rng)
+        img_l = world.render(R_cw, c_w, rig, rng=rng, rays=rays)
+        img_r = world.render(R_cw, c_right, rig, rng=rng, rays=rays)
         # Tcw: p_c = R_wc^T p_w - R_wc^T c
         R = R_cw.T.astype(np.float32)
         t = (-R @ c_w).astype(np.float32)

@@ -1,6 +1,5 @@
 """Tensor map model: keyframes + landmarks as fixed-capacity struct-of-arrays
-(port of `orbslam3lib_tpu/models/map_state.py:31-253`; `compact_map` is not
-ported yet).
+(port of `orbslam3lib_tpu/models/map_state.py`, with `compact_map`).
 
 Same fields, shapes and dtypes as the JAX `MapState`, so `from_numpy` /
 `to_numpy` carry a map between the packages unchanged: it is the system's
@@ -239,3 +238,73 @@ def spawn_mappoints(m: MapState, kf_id, p_world, desc, normal, min_dist,
     r[feat_slot] = torch.where(ok, ids.to(torch.int32), r[feat_slot])
     set_row(m.kf_mp, kf_id, r)
     return m
+
+
+def compact_map(m: MapState):
+    """Recycle culled keyframe and landmark slots by stable compaction
+    (reference :257-350). A fixed-capacity map must reclaim dead slots or
+    keyframe insertion stops at max_kf. Valid keyframes, and landmarks that
+    are valid and observed by at least one valid keyframe, slide down to the
+    low slots in their order (ids stay in temporal order, which the
+    essential-graph chain and the covisibility windows rely on); every
+    cross-reference (kf_mp, kf_parent, mp_first_kf) is rewritten.
+
+    Returns (new map, kf_new (K,) old -> new keyframe id or -1, mp_new (P,)
+    old -> new landmark id or -1), all on the map's device; the host-side
+    ids are remapped through them by the caller."""
+    K, P = m.max_kf, m.max_mp
+    dev = m.kf_R.device
+    i32 = torch.int32
+
+    def old_of_new(live, n):
+        # new slot -> old slot for the `live` mask (rank order), 0 past the end
+        rank = torch.cumsum(live.to(i32), 0) - 1
+        new = torch.where(live, rank, -1)
+        old = torch.zeros(n + 1, dtype=torch.int64, device=dev).scatter_(
+            0, torch.where(live, rank, n).long(), torch.arange(n, device=dev))[:n]
+        return new.to(i32), old
+
+    kf_new, kf_old = old_of_new(m.kf_valid, K)
+    n_kf2 = m.kf_valid.sum(dtype=i32)
+    obs = (m.kf_mp >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
+    obs_alive = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+    obs_alive.index_fill_(0, torch.where(obs, m.kf_mp, P).reshape(-1).long(), True)
+    mp_live = m.mp_valid & obs_alive[:P]
+    mp_new, mp_old = old_of_new(mp_live, P)
+    n_mp2 = mp_live.sum(dtype=i32)
+    live_kf = torch.arange(K, device=dev) < n_kf2
+    live_mp = torch.arange(P, device=dev) < n_mp2
+
+    def gk(arr, fill=0):
+        shape = (K,) + (1,) * (arr.dim() - 1)
+        return torch.where(live_kf.reshape(shape), arr[kf_old],
+                           torch.full_like(arr[kf_old], fill))
+
+    def gp(arr, fill=0):
+        shape = (P,) + (1,) * (arr.dim() - 1)
+        return torch.where(live_mp.reshape(shape), arr[mp_old],
+                           torch.full_like(arr[mp_old], fill))
+
+    def remap(ids, table, n):
+        return torch.where(ids >= 0, table[torch.clamp(ids, 0, n - 1).long()], -1)
+
+    kf_mp2 = remap(m.kf_mp[kf_old], mp_new, P)
+    eye = torch.eye(3, dtype=torch.float32, device=dev).expand(K, 3, 3)
+    m2 = MapState(
+        kf_R=torch.where(live_kf[:, None, None], m.kf_R[kf_old], eye),
+        kf_t=gk(m.kf_t), kf_valid=live_kf, kf_ts=gk(m.kf_ts),
+        kf_xy=gk(m.kf_xy), kf_level=gk(m.kf_level), kf_angle=gk(m.kf_angle),
+        kf_desc=gk(m.kf_desc),
+        kf_feat_valid=gk(m.kf_feat_valid) & live_kf[:, None],
+        kf_mp=torch.where(live_kf[:, None], kf_mp2, -1).to(i32),
+        kf_depth=gk(m.kf_depth), kf_v=gk(m.kf_v), kf_bg=gk(m.kf_bg),
+        kf_ba=gk(m.kf_ba),
+        kf_parent=torch.where(live_kf, remap(m.kf_parent[kf_old], kf_new, K), -1).to(i32),
+        n_kf=n_kf2,
+        mp_pos=gp(m.mp_pos), mp_valid=live_mp, mp_desc=gp(m.mp_desc),
+        mp_normal=gp(m.mp_normal), mp_min_dist=gp(m.mp_min_dist),
+        mp_max_dist=gp(m.mp_max_dist, 1e9),
+        mp_first_kf=torch.where(live_mp, remap(m.mp_first_kf[mp_old], kf_new, K), -1).to(i32),
+        mp_found=gp(m.mp_found, 1.0), mp_visible=gp(m.mp_visible, 1.0),
+        n_mp=n_mp2)
+    return m2, kf_new, mp_new

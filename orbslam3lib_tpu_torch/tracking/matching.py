@@ -7,7 +7,8 @@ one Hamming product, and the argmin runs over the penalised distances, so
 ties fall as in the reference (first index).
 
 Constants follow ORB-SLAM: TH_HIGH=100, TH_LOW=50 (ORBmatcher.cc:36-38),
-stereo descriptor gate (TH_HIGH+TH_LOW)/2=75.
+stereo descriptor gate (TH_HIGH+TH_LOW)/2=75, and the fisheye stereo gate
+TH_FISHEYE=70 (Frame.cc:1169-1177).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from ..utils import cameras, lie
 TH_HIGH = 100.0
 TH_LOW = 50.0
 TH_STEREO_DESC = 75.0
+TH_FISHEYE = 70.0
 NN_RATIO_DEFAULT = 0.9
 HISTO_LENGTH = 30   # rotation-consistency bins (ORBmatcher.cc:38)
 
@@ -150,6 +152,49 @@ def match_rectified_stereo(xy_l, level_l, desc_l, valid_l,
     u_r = has * xy_r[best, 0] + (1.0 - has) * (-1.0)
     disparity = (xy_l[:, 0] - u_r) * has
     depth = has * step01((disparity - 0.1) * 100.0) * bf / torch.clamp(disparity, min=0.1)
+    return u_r, depth
+
+
+def match_fisheye_stereo(xy_l, desc_l, valid_l, xy_r, desc_r, valid_r,
+                         cam_params_l, cam_params_r, R_lr, t_lr, bf: float):
+    """Two-camera (non-rectified, Kannala-Brandt) stereo matching and
+    triangulation (reference :185-221; Frame::ComputeStereoFishEyeMatches,
+    Frame.cc:1142-1251, with KannalaBrandt8::TriangulateMatches).
+
+    Each left feature takes its nearest right descriptor (the first on
+    ties), kept when the distance is <= TH_FISHEYE (the code's gate; its
+    docstring's "< 70" is not what runs); the pair is triangulated from the
+    two KB8 rays and kept when the rays are not parallel (cos < 0.9998), the
+    point lies in front of both cameras (z > 0.05) and reprojects within
+    5.991 px^2 in both views. R_lr/t_lr: pose of the right camera in the
+    left frame (x_l = R_lr x_r + t_lr). Returns (u_r, depth) in the
+    rectified-path contract: depth is the left camera's z of the point and
+    u_r the virtual coordinate u - bf/z (-1 and 0 where unmatched)."""
+    d = hamming_matrix(desc_l, desc_r, valid_l, valid_r)
+    best = torch.argmin(d, dim=1)
+    d1 = torch.amin(d, dim=1)
+    ok = valid_l & (d1 <= TH_FISHEYE)
+    xy_rb = xy_r[best]
+    ray_l = cameras.kb8_unproject(cam_params_l, xy_l)
+    ray_r = cameras.kb8_unproject(cam_params_r, xy_rb)
+    p3d, _, z1, z2 = cameras.triangulate_two_view(ray_l, ray_r, R_lr, t_lr)
+    # the parallax cosine with its products fused into the sum, as the
+    # reference's compiled graph computes it: the gate sits at f32(0.9998),
+    # where close stereo pairs of a real frame land to the last ulp
+    # (`triangulate_two_view` returns the unfused sum its other callers need)
+    r1 = ray_l / torch.linalg.norm(ray_l, dim=-1, keepdim=True)
+    r2 = torch.einsum("ij,nj->ni", R_lr, ray_r)
+    r2 = r2 / torch.linalg.norm(r2, dim=-1, keepdim=True)
+    cosp = torch.addcmul(torch.addcmul(r1[:, 0] * r2[:, 0], r1[:, 1], r2[:, 1]),
+                         r1[:, 2], r2[:, 2])
+    ok = ok & (cosp < 0.9998) & (z1 > 0.05) & (z2 > 0.05)
+    e_l = torch.sum((cameras.kb8_project(cam_params_l, p3d) - xy_l) ** 2, dim=-1)
+    p_r = torch.einsum("ij,nj->ni", R_lr.T, p3d - t_lr[None, :])
+    e_r = torch.sum((cameras.kb8_project(cam_params_r, p_r) - xy_rb) ** 2, dim=-1)
+    ok = ok & (e_l < 5.991) & (e_r < 5.991)
+    depth = torch.where(ok, p3d[:, 2], torch.zeros_like(z1))
+    u_r = torch.where(ok, xy_l[:, 0] - bf / torch.clamp(depth, min=1e-3),
+                      torch.full_like(z1, -1.0))
     return u_r, depth
 
 

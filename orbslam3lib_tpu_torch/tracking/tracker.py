@@ -2,9 +2,19 @@
 `orbslam3lib_tpu/tracking/tracker.py`, the reference's `Tracker(cfg,
 "stereo", enable_loop_closing=..., pipeline=0)`).
 
-Per frame (`Tracker.process_frame`, reference :765-874): stereo ORB
-extraction (kernel 1 on every pyramid level, both eyes in one launch),
-rectified stereo matching + SAD refinement; then either stereo
+Three stereo rigs are ported: rectified pinhole stereo; raw distorted
+stereo with `cfg.stereo.rectify` (radial-tangential or KB8 eyes, rectified
+on the card every frame through maps built once in `__init__`, after which
+the effective camera is the shared rectified pinhole, reference :486-516);
+and two-camera Kannala-Brandt stereo with `cfg.stereo.fisheye`
+(`matching.match_fisheye_stereo`, the rig the reference was built for).
+
+Per frame (`Tracker.process_frame`, reference :765-874): map compaction
+when the keyframe slots or the landmark slots run short (`_compact_map`,
+with a 64-frame backoff after a compaction that frees nothing); the remap
+of a raw pair; stereo ORB extraction (kernel 1 on every pyramid level, both
+eyes in one launch); rectified stereo matching + SAD refinement, or the
+fisheye matcher; then either stereo
 initialisation (first frame; its keyframe enters the BoW database) or the
 two-stage projection search + pose LM against the map, with the
 TrackReferenceKeyFrame fallback (kernel 2) when the inliers fall short;
@@ -22,12 +32,11 @@ RECENTLY_LOST and tries BoW relocalisation against up to 3 candidate
 keyframes (kernel 2 matches it to each); after 5 s lost the map is dropped
 and tracking starts over (`_handle_loss`).
 
-What this slice leaves out, each for later work: map compaction (the
-landmark-pressure flag is read from the probe pack and not acted on), the
-Atlas (a lost map of more than 10 keyframes is dropped, not archived, and
-no map merging), mono, IMU (so no inertial dead reckoning while lost),
-fisheye and rectification inputs, and the async, pipelined and
-asynchronous-global-BA paths.
+What this slice leaves out, each raising `NotImplementedError` that names
+its ROADMAP item where a configuration asks for it: the Atlas (a lost map
+of more than 10 keyframes is dropped, not archived, and no map merging),
+mono, IMU (so no inertial dead reckoning while lost), the fixed local-BA
+window, and the async, pipelined and asynchronous-global-BA paths.
 """
 from __future__ import annotations
 
@@ -38,7 +47,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import SlamConfig
+from ..config import CameraConfig, SlamConfig
 from ..device import get_device
 from ..mapping import local_mapping as lm_ops
 from ..mapping.loop_closing import LoopCloser, mapper_step_fused
@@ -49,7 +58,8 @@ from ..models.vocabulary import (DEFAULT_VOCAB_PATH, bow_from_descriptors,
                                  load_vocabulary, train_vocabulary)
 from ..ops.extractor import Features, ThresholdController, extract_orb_stereo
 from ..ops.pyramid import scale_factors_on
-from ..utils import cameras, lie
+from ..utils import cameras, lie, rectify
+from ..utils.timing import StageTimer
 from . import matching
 from .pose_opt import PoseObs, pose_optimization
 from .reloc import (detect_reloc_candidates, make_place_recognition,
@@ -215,30 +225,68 @@ def _insert_kf_and_spawn(m: ms.MapState, R, t, ts: float, feat_xy, feat_level,
     return m, kf_id
 
 
+def check_ported(cfg: SlamConfig, sensor: str) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for a sensor or
+    option the port does not have yet."""
+    if sensor != "stereo":
+        raise NotImplementedError(
+            f"sensor {sensor!r}: only stereo is ported (ROADMAP queue 1, item 7: "
+            "mono)")
+    if cfg.use_imu:
+        raise NotImplementedError("IMU is not ported (ROADMAP queue 1, item 7: IMU)")
+    if not (cfg.stereo.fisheye or cfg.stereo.rectify) \
+            and cfg.camera.model_id != cameras.PINHOLE:
+        raise NotImplementedError(
+            "a distorted stereo rig needs cfg.stereo.rectify or cfg.stereo.fisheye "
+            "(ROADMAP queue 1, item 7: distorted rig without rectify or fisheye)")
+    if cfg.stereo.fisheye and cfg.camera.model_id != cameras.KANNALA_BRANDT:
+        raise NotImplementedError(
+            "the fisheye stereo path is the two-camera Kannala-Brandt rig "
+            "(ROADMAP queue 1, item 7: distorted rig without rectify or fisheye)")
+    if not cfg.mapping.covis_ba_window:
+        raise NotImplementedError(
+            "only the covisibility local-BA window is ported (ROADMAP queue 1, "
+            "item 7: fixed local-BA window)")
+    if cfg.mapping.async_gba:
+        raise NotImplementedError(
+            "only the synchronous global BA is ported (ROADMAP queue 1, "
+            "item 7: async GBA)")
+
+
 class Tracker:
     """Host-side state machine of synchronous stereo tracking.
 
-    `device` is where the map, the frames and all per-frame work live. It
-    has no default and is used exactly as given (see `device.get_device`).
-    `enable_loop_closing` as in the reference (on by default).
+    `device` is where the map, the frames and all per-frame work live: the
+    card by default, exactly as given otherwise (`device.get_device`, which
+    raises rather than falling back to the CPU). `enable_loop_closing` as
+    in the reference (on by default); `enable_timing` records the host time
+    of the stages `extract`, `stereo_match` and `track` per frame
+    (`self.timer`), waiting for the card at the end of each.
+
+    With `cfg.stereo.rectify`, `__init__` changes `cfg` as the reference
+    does: the camera becomes the shared rectified pinhole, the baseline the
+    rectified one, `camera2`, `R_lr` and `t_lr` are cleared and `imu.R_bc`
+    turns with the left eye. A second tracker needs a fresh `SlamConfig`.
     """
 
     def __init__(self, cfg: SlamConfig, sensor: str = "stereo", *,
-                 device: torch.device | str, enable_loop_closing: bool = True):
-        if sensor != "stereo":
-            raise NotImplementedError(f"sensor {sensor!r}: only stereo is ported")
-        if cfg.use_imu or cfg.stereo.fisheye or cfg.stereo.rectify \
-                or cfg.camera.model_id != cameras.PINHOLE:
-            raise NotImplementedError(
-                "only rectified pinhole stereo without IMU is ported")
-        if not cfg.mapping.covis_ba_window:
-            raise NotImplementedError(
-                "only the covisibility local-BA window is ported")
-        if cfg.mapping.async_gba:
-            raise NotImplementedError("only the synchronous global BA is ported")
+                 device: torch.device | str = "cuda",
+                 enable_loop_closing: bool = True, enable_timing: bool = False):
+        check_ported(cfg, sensor)
         self.cfg = cfg
         self.sensor = sensor
         self.device = get_device(device)
+        self.timer = StageTimer(enabled=enable_timing)
+        self._remap = None
+        if cfg.stereo.rectify and not cfg.stereo.fisheye:
+            self._setup_rectification()
+        self._fisheye_rig = None
+        if cfg.stereo.fisheye:
+            cam2 = cfg.camera2 or cfg.camera
+            R_lr, t_lr = cfg.stereo_extrinsics
+            self._fisheye_rig = tuple(
+                torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+                for x in (cam2.params, R_lr, t_lr))
         mc = cfg.map
         self.map = ms.empty_map(mc.max_kf, mc.max_mp, cfg.orb.max_kp,
                                 device=self.device)
@@ -259,13 +307,15 @@ class Tracker:
         self.stats = {"n_kf": 0, "n_frames": 0, "track_fail": 0,
                       "ref_kf_fallbacks": 0, "n_reloc": 0, "n_loops": 0,
                       "n_resets": 0, "n_new_maps": 0,
-                      "n_mapping_steps": 0, "n_local_ba": 0}
+                      "n_mapping_steps": 0, "n_local_ba": 0, "n_compactions": 0}
         self._th_far = (float(cfg.tracker.th_far_points)
                         if cfg.tracker.th_far_points > 0 else None)
         self.place_rec = None         # BoW keyframe database (lazy)
         self.enable_loop_closing = enable_loop_closing
         self.loop_closer = None       # made with the database
-        self._mp_pressure = False     # landmark capacity nearly used (probe pack)
+        self._mp_pressure = False     # landmark capacity nearly used
+        self._mp_pressure_probe = None  # (n_mp copy, its event), every 8th keyframe
+        self._compact_backoff = 0     # earliest frame id of the next compaction
         self._kf_wall = 0.0           # host time of the last keyframe's creation
         self.lost_since: Optional[float] = None
         self._n_kf_host = 0           # host mirror of map.n_kf
@@ -274,6 +324,28 @@ class Tracker:
         # previous frame's bindings (feature slot -> landmark id) and angles
         self._prev_feat_mp: Optional[torch.Tensor] = None
         self._prev_feat_angle: Optional[torch.Tensor] = None
+
+    def _setup_rectification(self):
+        """Settings.cc:485 precomputeRectificationMaps (reference :486-516):
+        Bouguet rectification of the raw rig, its two-pass maps, and the
+        remap's taps on the card; then the effective camera becomes the
+        shared rectified pinhole, in `cfg` itself."""
+        cfg = self.cfg
+        cam2 = cfg.camera2 or cfg.camera
+        R_lr, t_lr = cfg.stereo_extrinsics
+        rr = rectify.stereo_rectify(cfg.camera.params, cam2.params,
+                                    cfg.camera.model_id, cam2.model_id,
+                                    R_lr, t_lr, cfg.camera.width, cfg.camera.height)
+        self._remap = rectify.TwoPassRemap(rectify.twopass_maps(rr.maps), self.device)
+        fxn, fyn, cxn, cyn = [float(x) for x in rr.new_params]
+        cfg.camera = CameraConfig(model="pinhole", fx=fxn, fy=fyn, cx=cxn, cy=cyn,
+                                  width=cfg.camera.width, height=cfg.camera.height)
+        cfg.camera2 = None
+        cfg.stereo.baseline = rr.baseline
+        cfg.stereo.R_lr = None
+        cfg.stereo.t_lr = None
+        R_bc = np.asarray(cfg.imu.R_bc, np.float64).reshape(3, 3)
+        cfg.imu.R_bc = tuple((R_bc @ rr.R_rect[0].T).reshape(-1).tolist())
 
     def _rel_ts(self, ts: float) -> float:
         """Map-relative timestamp for the f32 map tensors (origin: the map's
@@ -301,30 +373,56 @@ class Tracker:
                 self._new_map()
         self._last_frame_ts = ts
 
-        img_dev = torch.as_tensor(img, device=self.device)
-        if img_dev.dim() != 3 or img_dev.shape[0] != 2:
-            raise ValueError(f"expected a (2, H, W) stereo pair, got {tuple(img_dev.shape)}")
-        feats, canvas = extract_orb_stereo(
-            img_dev, float(np.float32(self.threshold.t)),
-            max_kp=cfg.orb.max_kp, n_levels=cfg.orb.n_levels,
-            return_canvas=True)
+        # slot recycling (reference :792-803): keyframe slots (nearly) used
+        # up, or the landmark slots under pressure; a compaction that frees
+        # nothing backs off for 64 frames
+        if self.state == OK and self.frame_id >= self._compact_backoff and \
+                (self._mp_pressure or self._n_kf_host >= self.map.max_kf - 1):
+            self._mp_pressure = False
+            if not self._compact_map():
+                self._compact_backoff = self.frame_id + 64
+
+        # no SAD refinement on the fisheye path (its rows are not epipolar)
+        want_canvas = cfg.stereo.sad_refine and not cfg.stereo.fisheye
+        with self.timer.stage("extract"):
+            img_dev = torch.as_tensor(img, device=self.device)
+            if img_dev.dim() != 3 or img_dev.shape[0] != 2:
+                raise ValueError(f"expected a (2, H, W) stereo pair, got {tuple(img_dev.shape)}")
+            if self._remap is not None:
+                img_dev = self._remap(img_dev)
+            ex = extract_orb_stereo(
+                img_dev, float(np.float32(self.threshold.t)),
+                max_kp=cfg.orb.max_kp, n_levels=cfg.orb.n_levels,
+                return_canvas=want_canvas)
+            feats, canvas = ex if want_canvas else (ex, None)
+            self._timer_sync()
         bf, min_z = float(cfg.bf), float(cfg.stereo.min_z)
-        u_r, depth = matching.match_rectified_stereo(
-            feats.xy[0], feats.level[0], feats.desc[0], feats.valid[0],
-            feats.xy[1], feats.level[1], feats.desc[1], feats.valid[1],
-            bf, min_z, n_levels=cfg.orb.n_levels)
-        if cfg.stereo.sad_refine:
-            u_r, depth = matching.refine_stereo_sad(
-                canvas[0], canvas[1], feats.xy[0], feats.level[0],
-                feats.valid[0], u_r, depth, bf=bf, min_z=min_z,
-                n_levels=cfg.orb.n_levels)
+        with self.timer.stage("stereo_match"):
+            if self._fisheye_rig is not None:
+                u_r, depth = matching.match_fisheye_stereo(
+                    feats.xy[0], feats.desc[0], feats.valid[0],
+                    feats.xy[1], feats.desc[1], feats.valid[1],
+                    self.cam_params, *self._fisheye_rig, bf)
+            else:
+                u_r, depth = matching.match_rectified_stereo(
+                    feats.xy[0], feats.level[0], feats.desc[0], feats.valid[0],
+                    feats.xy[1], feats.level[1], feats.desc[1], feats.valid[1],
+                    bf, min_z, n_levels=cfg.orb.n_levels)
+                if want_canvas:
+                    u_r, depth = matching.refine_stereo_sad(
+                        canvas[0], canvas[1], feats.xy[0], feats.level[0],
+                        feats.valid[0], u_r, depth, bf=bf, min_z=min_z,
+                        n_levels=cfg.orb.n_levels)
+            self._timer_sync()
         n_feat = int(feats.n_valid[0])
         self.threshold.update(n_feat)
 
         if self.state == NOT_INITIALIZED:
             out = self._initialize_stereo(feats, u_r, depth, ts, n_feat)
         else:
-            out = self._track(feats, u_r, depth, ts)
+            with self.timer.stage("track"):
+                out = self._track(feats, u_r, depth, ts)
+                self._timer_sync()
 
         self.frame_id += 1
         self.stats["n_frames"] += 1
@@ -332,6 +430,11 @@ class Tracker:
             R, t = self.pose
             self.trajectory.append((ts, R.cpu().numpy(), t.cpu().numpy()))
         return out
+
+    def _timer_sync(self):
+        """With timing on, a stage ends when the card has finished it."""
+        if self.timer.enabled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- initialisation -------------------------------------------------------
     def _initialize_stereo(self, feats: Features, u_r, depth, ts, n_feat) -> dict:
@@ -577,7 +680,82 @@ class Tracker:
         self._kf_wall = time.perf_counter()
         if kf_id >= 0:
             self._n_kf_host = kf_id + 1
+            if kf_id % 8 == 0:
+                self._probe_mp_pressure()
             self._mapping_pipeline(kf_id)
+
+    def _probe_mp_pressure(self):
+        """Landmark-slot pressure without waiting for the card (reference
+        :1198-1207): read the landmark count copied 8 keyframes ago, then
+        start a copy of the current one. The 90% threshold absorbs the lag."""
+        prev = self._mp_pressure_probe
+        if prev is not None:
+            n_mp, done = prev
+            if done is not None:
+                done.synchronize()
+            self._mp_pressure = int(n_mp) >= 0.9 * self.map.max_mp
+        n_mp = self.map.n_mp.to("cpu", non_blocking=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        self._mp_pressure_probe = (n_mp, done)
+
+    # -- slot recycling (reference :661-712) ----------------------------------
+    def _compact_map(self) -> bool:
+        """Compact the map's culled keyframe and landmark slots away
+        (`map_state.compact_map`) and remap every host-side id: the last
+        keyframe, the loop closer's last loop keyframe and loop edges (its
+        consistency state restarts), the previous frame's landmark bindings,
+        and the BoW database, rebuilt from the map. Returns False when
+        nothing was freed.
+
+        The previous frame's bindings are remapped through `mp_new`, ids of
+        dropped landmarks becoming -1. The reference leaves them as they were
+        (its `_compact_map` at tracker.py:661-699 does not touch
+        `_prev_feat_mp`), so after its compaction the next frame's stage-1
+        search and local-map mask read other landmarks' slots; the port does
+        not carry that fault over (ROADMAP queue 3)."""
+        m = self.map
+        n_kf_b, n_mp_b = int(m.n_kf), int(m.n_mp)
+        m2, kf_new, mp_new = ms.compact_map(m)
+        n_kf_a, n_mp_a = int(m2.n_kf), int(m2.n_mp)
+        if n_kf_a >= n_kf_b and n_mp_a >= n_mp_b:
+            return False
+        kf_new_np = kf_new.cpu().numpy()
+        self.map = m2
+        self._n_kf_host = n_kf_a
+        if 0 <= self.last_kf_id < len(kf_new_np):
+            self.last_kf_id = int(kf_new_np[self.last_kf_id])
+        self._remap_prev_feat_mp(mp_new)
+        lc = self.loop_closer
+        if lc is not None:
+            if 0 <= lc.last_loop_kf < len(kf_new_np):
+                lc.last_loop_kf = int(kf_new_np[lc.last_loop_kf])
+            lc.consistent_candidate = -1
+            lc.consistency_count = 0
+            lc.remap_keyframes(kf_new_np)
+        if self.place_rec is not None:
+            self._rebuild_place_rec()
+        self.stats["n_compactions"] += 1
+        return True
+
+    def _remap_prev_feat_mp(self, mp_new: torch.Tensor):
+        prev = self._prev_feat_mp
+        if prev is not None:
+            P = mp_new.shape[0]
+            self._prev_feat_mp = torch.where(
+                prev >= 0, mp_new[torch.clamp(prev, 0, P - 1).long()], -1).to(torch.int32)
+
+    def _rebuild_place_rec(self):
+        """The BoW database rebuilt from the map's valid keyframes (after a
+        compaction re-indexed the slots)."""
+        db = make_place_recognition(self.place_rec.voc, self.cfg.map.max_kf)
+        for k in np.flatnonzero(self.map.kf_valid.cpu().numpy()):
+            db.add(int(k), self.map.kf_desc[int(k)], self.map.kf_feat_valid[int(k)])
+        self.place_rec = db
+        if self.loop_closer is not None:
+            self.loop_closer.pr = db
 
     # -- the per-keyframe back end ------------------------------------------
     def _ensure_place_rec(self, desc_bits):
@@ -631,8 +809,8 @@ class Tracker:
     def _consume_probe(self, kid: int, pv: np.ndarray):
         """The loop closer on a read probe pack (reference
         `_consume_probes`): landmark pressure from the pack's n_mp slot
-        (for map compaction, which is not ported: nothing acts on it yet),
-        then the consistency machine, verification, correction and global
+        (the next frame compacts the map when it is set), then the
+        consistency machine, verification, correction and global
         BA; after a loop, `n_loops`, `loop_latency_ms` (keyframe creation
         to corrected map, host clock) and the pose from the corrected
         keyframe."""

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions; the slice
 with its back end, the loop leg (probe, verification, correction, global
-BA) and relocalisation on the card against the same on the CPU (marker
+BA), relocalisation, the rectifying remap, the fisheye matcher, `System`
+on a raw radtan and a KB8 rig, and compaction on the card against the same
+on the CPU (marker
 `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
@@ -202,3 +204,163 @@ def test_relocalisation_on_card_matches_cpu(cuda_device):
     assert n_g == n_c >= 50
     np.testing.assert_allclose(R_g.numpy(), R_c.numpy(), rtol=0, atol=1e-4)
     np.testing.assert_allclose(t_g.numpy(), t_c.numpy(), rtol=0, atol=1e-4)
+
+
+DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
+SMALL = dict(fx=150.0, fy=150.0, cx=160.0, cy=100.0, width=320, height=200)
+SMALL_KB8 = dict(fx=142.5, fy=142.5, cx=160.0, cy=100.0, width=320, height=200,
+                 model="kannala_brandt8", k=(0.02, -0.01, 0.003, 0.0))
+
+
+@pytest.mark.cuda
+def test_remap_on_card_matches_cpu(cuda_device):
+    """The rectifying remap of a rendered raw pair: the same gathers and
+    fused sums on the card as on the CPU (to 1e-3 grey levels), and no
+    value read back to the host (sync debug mode "error")."""
+    from orbslam3lib_tpu_torch.utils import cameras, rectify
+    imgs, _, rig = orbit_frames(2, dict(SMALL, dist=DIST))
+    rr = rectify.stereo_rectify(rig.params, rig.params, cameras.PINHOLE_RADTAN,
+                                cameras.PINHOLE_RADTAN, np.eye(3),
+                                np.array([rig.baseline, 0, 0]), rig.width, rig.height)
+    mp2 = rectify.twopass_maps(rr.maps)
+    cpu = rectify.TwoPassRemap(mp2)(torch.from_numpy(imgs[1]))
+    remap = rectify.TwoPassRemap(mp2, cuda_device)
+    x = torch.from_numpy(imgs[1]).to(cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = remap(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_fisheye_matcher_on_card_matches_cpu(cuda_device):
+    """match_fisheye_stereo on KB8 projections of random points: the same
+    accepted pairs, depth to 1e-4 m and u_r to the px that follow from it."""
+    from orbslam3lib_tpu_torch.tracking.matching import match_fisheye_stereo
+    from orbslam3lib_tpu_torch.utils import cameras
+    rng = np.random.default_rng(5)
+    K = torch.tensor([285.0, 285.0, 320.0, 200.0, 0.02, -0.01, 0.003, 0.0])
+    pts = torch.from_numpy(rng.uniform([-2, -1.5, 1.0], [2, 1.5, 4.5], (300, 3)).astype(np.float32))
+    t = torch.tensor([0.11, 0.0, 0.0])
+    uv_l, uv_r = cameras.kb8_project(K, pts), cameras.kb8_project(K, pts - t)
+    desc = torch.from_numpy(rng.integers(0, 2, (300, 256)).astype(np.int8))
+    perm = torch.from_numpy(rng.permutation(300))
+    args = (uv_l, desc, torch.ones(300, dtype=torch.bool), uv_r[perm], desc[perm],
+            torch.rand(300, generator=torch.Generator().manual_seed(1)) < 0.9,
+            K, K, torch.eye(3), t)
+    u_c, d_c = match_fisheye_stereo(*args, 285.0 * 0.11)
+    u_g, d_g = match_fisheye_stereo(*(a.to(cuda_device) for a in args), 285.0 * 0.11)
+    assert torch.equal(d_g.cpu() > 0, d_c > 0) and int((d_c > 0).sum()) > 150
+    np.testing.assert_allclose(d_g.cpu().numpy(), d_c.numpy(), rtol=0, atol=1e-4)
+    # u_r = u - bf / z moves by bf / z^2 * dz: up to 3.1e-3 px for dz = 1e-4 m
+    # at z >= 1 m (the card's atan, tan and sqrt round otherwise)
+    np.testing.assert_allclose(u_g.cpu().numpy(), u_c.numpy(), rtol=0, atol=5e-3)
+
+
+def _system_config(rig_name, rig):
+    from orbslam3lib_tpu_torch.config import CameraConfig
+    cfg = backend_config(SlamConfig, rig)
+    if rig_name == "radtan":
+        cfg.camera.dist = DIST
+        cfg.stereo.rectify = True
+    else:
+        cfg.camera = CameraConfig(model="kannala_brandt8", fx=rig.fx, fy=rig.fy,
+                                  cx=rig.cx, cy=rig.cy, k=tuple(rig.k),
+                                  width=rig.width, height=rig.height)
+        cfg.stereo.fisheye = True
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rig_name", ["radtan", "kb8"])
+def test_system_on_card_matches_cpu(cuda_device, rig_name):
+    """16 frames of the small orbit through `System.track_stereo` on a raw
+    radtan rig (rectified on the card) and on the KB8 rig, on the card and
+    on the CPU: the same counts, camera centres within 5 mm."""
+    from orbslam3lib_tpu_torch.system import System
+    imgs, ts, rig = orbit_frames(16, dict(SMALL, dist=DIST) if rig_name == "radtan"
+                                 else SMALL_KB8)
+    systems = [System(_system_config(rig_name, rig), device=d, enable_loop_closing=False)
+               for d in ("cpu", cuda_device)]
+    for img, stamp in zip(imgs, ts):
+        for s in systems:
+            s.track_stereo(img, float(stamp))
+    cpu, card = systems
+    assert card.get_stats() == cpu.get_stats()
+    assert card.get_tracking_state() == cpu.get_tracking_state() == 1
+    np.testing.assert_allclose(card.tracker.trajectory_centers(),
+                               cpu.tracker.trajectory_centers(), rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_pipeline_on_card_matches_sync(cuda_device):
+    """`System(use_pipeline=True)` on the card: the consumer thread tracks on
+    the tracker's card and hands `pose_callback` the poses of a synchronous
+    System on the same frames (the same counts, centres within 1 mm); held
+    off by the tracker's lock, two of the next six frames wait in the queue
+    and three are dropped; `shutdown` joins the thread."""
+    from orbslam3lib_tpu_torch.system import System
+    imgs, ts, rig = orbit_frames(18)
+    got = []
+
+    def callback(R, t, stamp, out):
+        got.append((stamp, -R.T @ t, torch.cuda.current_device()))
+
+    sync = System(backend_config(SlamConfig, rig), device=cuda_device,
+                  enable_loop_closing=False)
+    pipe = System(backend_config(SlamConfig, rig), device=cuda_device,
+                  enable_loop_closing=False, use_pipeline=True, pose_callback=callback)
+    consumer = pipe._consumer
+    for img, stamp in zip(imgs[:12], ts[:12]):
+        sync.track_stereo(img, float(stamp))
+        assert pipe.track_stereo(img, float(stamp)) == {"queued": True}
+        pipe.wait_idle(timeout=120.0)
+    assert pipe._dropped == 0 and [g[0] for g in got] == [float(s) for s in ts[:12]]
+    assert pipe.get_stats() == sync.get_stats()
+    assert {g[2] for g in got} == {pipe.tracker.device.index}
+    np.testing.assert_allclose(np.stack([g[1] for g in got]),
+                               sync.tracker.trajectory_centers(), rtol=0, atol=1e-3)
+    with pipe._lock:
+        pipe.track_stereo(imgs[12], float(ts[12]))
+        while not pipe._queue.empty():
+            pass
+        for img, stamp in zip(imgs[13:], ts[13:]):
+            pipe.track_stereo(img, float(stamp))
+    pipe.wait_idle(timeout=120.0)
+    pipe.shutdown()
+    assert not consumer.is_alive() and pipe._consumer is None
+    assert pipe._dropped == 3 and len(got) == 15
+    assert pipe.get_stats()["n_frames"] == 15
+
+
+@pytest.mark.cuda
+def test_compaction_on_card_matches_cpu(cuda_device):
+    """24 frames of the small orbit with 12 keyframe / 1,024 landmark slots
+    and a keyframe per frame, on the card and on the CPU: the same
+    compactions and counts, centres within 5 mm; and `compact_map` of the
+    CPU's final map, with two keyframes culled, equal on both devices."""
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    imgs, ts, rig = orbit_frames(24)
+    trackers = []
+    for d in ("cpu", cuda_device):
+        cfg = backend_config(SlamConfig, rig)
+        cfg.map.max_kf, cfg.map.max_mp = 12, 1024
+        cfg.tracker.min_frames_between_kf = 1
+        trackers.append(Tracker(cfg, "stereo", device=d))
+    for img, stamp in zip(imgs, ts):
+        for tr in trackers:
+            tr.process_frame(img, float(stamp))
+    cpu, card = trackers
+    assert card.stats == cpu.stats and cpu.stats["n_compactions"] >= 1
+    np.testing.assert_allclose(card.trajectory_centers(), cpu.trajectory_centers(),
+                               rtol=0, atol=5e-3)
+    arrays = ms.to_numpy(cpu.map)
+    arrays["kf_valid"][[1, 3]] = False
+    a = ms.compact_map(ms.from_numpy(arrays))
+    b = ms.compact_map(ms.from_numpy(arrays, device=cuda_device))
+    assert torch.equal(a[1], b[1].cpu()) and torch.equal(a[2], b[2].cpu())
+    for name, x in ms.to_numpy(a[0]).items():
+        np.testing.assert_array_equal(ms.to_numpy(b[0])[name], x, err_msg=name)

@@ -1,5 +1,5 @@
 """The port's math substrate against the JAX reference on the same seeded
-inputs: SO(3)/SE(3) (utils/lie), the pinhole camera (utils/cameras), the
+inputs: SO(3)/SE(3) (utils/lie), the camera models (utils/cameras), the
 Huber weight (utils/robust) and the arithmetic gates (ops/masks). All f32;
 the two frameworks evaluate transcendental functions and sums with
 different roundings, so values agree to a few f32 ulps (held at 1e-5
@@ -53,22 +53,37 @@ def test_so3_se3_agree():
            jl.se3_apply(Rj[0], tj[0], jnp.asarray(p)))
 
 
-def test_pinhole_agrees_and_other_models_raise():
-    params = np.array([300.0, 310.0, 320.0, 200.0], np.float32)
+# (model id, params, project tolerance, unproject tolerance): pinhole is one
+# multiply-add per coordinate; the distorted models iterate (8 fixed-point
+# steps, 10 Newton steps) and agree to 1e-5 relative
+CAMERA_PARAMS = {
+    "pinhole": (tc.PINHOLE, [300.0, 310.0, 320.0, 200.0],
+                dict(rtol=1e-6, atol=1e-4), dict(rtol=0, atol=1e-5)),
+    "radtan": (tc.PINHOLE_RADTAN, [300.0, 310.0, 320.0, 200.0, -0.28340811,
+                                   0.07395907, 0.00019359, 1.76187114e-05, 0.0],
+               dict(rtol=1e-5, atol=1e-4), dict(rtol=1e-5, atol=1e-5)),
+    "kb8": (tc.KANNALA_BRANDT, [285.0, 285.0, 320.0, 200.0, 0.02, -0.01, 0.003, 0.0],
+            dict(rtol=1e-5, atol=1e-4), dict(rtol=1e-5, atol=1e-5)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CAMERA_PARAMS))
+def test_camera_models_agree(name):
+    """project, unproject and project_jac dispatch every model id as the
+    reference does (test_torch_cameras.py holds each model closer)."""
+    model, params, tol_project, tol_unproject = CAMERA_PARAMS[name]
+    params = np.asarray(params, np.float32)
     rng = np.random.default_rng(3)
     p = rng.normal(0, 1, (128, 3)).astype(np.float32)
     p[:, 2] = np.abs(p[:, 2]) + 0.5
     uv = rng.uniform(0, 640, (128, 2)).astype(np.float32)
     P, T = jnp.asarray(params), torch.from_numpy(params)
-    _close(tc.project(tc.PINHOLE, T, torch.from_numpy(p)),
-           jc.project(jc.PINHOLE, P, jnp.asarray(p)), rtol=1e-6, atol=1e-4)
-    _close(tc.unproject(tc.PINHOLE, T, torch.from_numpy(uv)),
-           jc.unproject(jc.PINHOLE, P, jnp.asarray(uv)))
-    _close(tc.project_jac(tc.PINHOLE, T, torch.from_numpy(p)),
-           jc.project_jac(jc.PINHOLE, P, jnp.asarray(p)), rtol=1e-6, atol=1e-3)
-    for model in (tc.KANNALA_BRANDT, tc.PINHOLE_RADTAN):
-        with pytest.raises(NotImplementedError):
-            tc.project(model, T, torch.from_numpy(p))
+    _close(tc.project(model, T, torch.from_numpy(p)),
+           jc.project(model, P, jnp.asarray(p)), **tol_project)
+    _close(tc.unproject(model, T, torch.from_numpy(uv)),
+           jc.unproject(model, P, jnp.asarray(uv)), **tol_unproject)
+    _close(tc.project_jac(model, T, torch.from_numpy(p)),
+           jc.project_jac(model, P, jnp.asarray(p)), rtol=1e-6, atol=1e-3)
 
 
 def test_robust_and_masks_agree():

@@ -28,7 +28,8 @@ def test_port_module_list_covers_the_slice():
                 "mapping.local_ba", "mapping.local_mapping", "mapping.loop_closing",
                 "mapping.map_ba", "models.vocabulary", "utils.smallmat",
                 "mapping.sim3", "mapping.pose_graph", "utils.lie",
-                "utils.sampling"):
+                "utils.sampling", "utils.cameras", "utils.rectify",
+                "utils.timing", "tracking.matching", "viz", "system"):
         assert f"orbslam3lib_tpu_torch.{mod}" in names
 
 
