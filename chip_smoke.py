@@ -73,7 +73,23 @@ Phases, each fatal on failure:
      keyframes made, at most 24 held, state OK with no failure, and after
      every compaction the loop closer's and the database's ids inside the
      live slots.
-  Phases 4-6 each reset the launch counters just before their frames and
+  7. P, production: bench.py's `full_slam` protocol (bench.py:329-440) on
+     the port, over the first N_PRODUCTION frames of phase 3's orbit:
+     `Tracker(cfg, "stereo", pipeline=16, chunk=4, async_mapping=True)` with
+     `cfg.mapping.async_gba` (the pipelined tracker, the mapper thread, the
+     global BA on its own thread); a populate of 240 frames with the mapper
+     queue detached (mapping inline), a keyframe every 2nd frame and
+     culling off, `finish()` and one `_compact_map()`; 16 warm frames; 3
+     windows of 40 frames, each timed on the host's clock and ended by
+     `_drain_pipeline()`. A line per window (ms per frame, failures,
+     keyframes, loops) beside phase 3's synchronous median of the same
+     call; the host ms of `process_frame` calls made while the mapper was
+     busy and while it was idle. Checks: state OK and no failure in a
+     window, at least one loop and one merged async GBA, no mapper or GBA
+     error and every thread joined, kernel 1 once per extracted frame and
+     kernel 2 at least once, the trajectory's ATE within the reference's
+     bound (REF_PRODUCTION, tools/reference_smoke.py --phase production).
+  Phases 4-7 each reset the launch counters just before their frames and
   read them just after; each kernel must launch on each of them (counts in
   the kernels line, `launches_by_path`). The sequences render in three
   processes started before the card is used.
@@ -139,6 +155,18 @@ COMPACT_MAX_MP = 2048
 REF_RADTAN = {"ate_m": 0.034740, "n_loops": 1, "loop_edges": [[0, 27]]}   # loop at frame 343
 REF_KB8 = {"ate_m": 0.015875}                                             # no loop in 180 frames
 REF_COMPACT = {"ate_m": 0.027008}                                         # 147 KFs, 28 compactions
+
+# Phase P: bench.py's full_slam protocol (bench.py:39-42, 329-440)
+N_POPULATE, N_WARM, N_WINDOWS, N_WINDOW = 240, 16, 3, 40
+N_PRODUCTION = N_POPULATE + N_WARM + N_WINDOWS * N_WINDOW
+# The JAX reference on the CPU, same protocol and frames, each chunk
+# consumed right after its dispatch as on the card (tools/reference_smoke.py
+# --phase production): 121 populate keyframes, the loop (12, 128) in the
+# third window, one async GBA started and merged, one frame lost after the
+# merge; ATE 0.081811 m on the trajectory, 0.051783 m on the keyframes.
+# Bounds: x 1.5 + 5 mm (the keyframes' own, as the reference's keyframes
+# are not worse than its trajectory).
+REF_PRODUCTION = {"ate_m": 0.081811, "kf_ate_m": 0.051783}
 
 FAST_SHAPES = [(400, 640), (320, 512), (240, 384), (196, 314), (160, 256),
                (127, 203), (101, 161), (80, 128)]
@@ -616,6 +644,142 @@ def phase_compact(dev, imgs, ts, rig):
     return checks, launches
 
 
+def phase_production(dev, imgs, ts, rig, sync_median_ms):
+    """Phase P: bench.py's full_slam protocol on the port."""
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_tracking_config
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
+    from orbslam3lib_tpu_torch.tracking.tracker import OK, Tracker
+    cfg = orbit_tracking_config(rig)
+    cfg.mapping.async_gba = True
+    tr = Tracker(cfg, "stereo", device=dev, pipeline=16, chunk=4, async_mapping=True)
+    mapper = tr._mapper_thread
+    # events by frame id: the frames lost, the loops and the GBA merges
+    events = []
+    consume, probes, after_merge = tr._consume_record, tr._consume_probes, tr._after_merge
+
+    def consume_logged(rec, c, v, prev_pose):
+        if int(v[1]) < cfg.tracker.min_inliers:
+            events.append(("lost", rec.fids[c], int(v[1])))
+        return consume(rec, c, v, prev_pose)
+
+    def probes_logged(probe_list):
+        n = tr.stats["n_loops"]
+        out = probes(probe_list)
+        if tr.stats["n_loops"] > n:
+            events.append(("loop", tr.frame_id, list(tr.loop_closer.loop_edges[-1])))
+        return out
+
+    def merge_logged(*a):
+        events.append(("gba merged", tr.frame_id, tr.last_kf_id))
+        return after_merge(*a)
+
+    # the lag regime: chunks in flight at each non-draining finalize, and
+    # how many of them it consumed
+    in_flight = []
+    finalize = tr._finalize_impl
+
+    def finalize_logged(drain):
+        before = len(tr._pending)
+        finalize(drain)
+        if not drain and before:
+            in_flight.append((before, before - len(tr._pending)))
+
+    tr._consume_record, tr._consume_probes, tr._after_merge, tr._finalize_impl = \
+        consume_logged, probes_logged, merge_logged, finalize_logged
+    frames = [(imgs[i], float(ts[i])) for i in range(N_PRODUCTION)]
+    torch.cuda.synchronize()
+    cuda_fast.reset_count()
+    cuda_matcher.reset_count()
+    t0 = time.perf_counter()
+    # populate: dense keyframes, mapping inline (the queue detached), as bench
+    kf_ratio = cfg.tracker.kf_ref_ratio
+    cfg.tracker.kf_ref_ratio = 10.0
+    cfg.tracker.min_frames_between_kf = 2
+    cfg.tracker.max_frames_between_kf = 2
+    cfg.mapping.kf_culling = False
+    queue_save, tr._map_queue = tr._map_queue, None
+    for img, stamp in frames[:N_POPULATE]:
+        tr.process_frame(img, stamp)
+    tr.finish()
+    tr._map_queue = queue_save
+    populate = (int(tr.map.n_kf), int(tr.map.mp_valid.sum()), tr.stats["track_fail"],
+                time.perf_counter() - t0)
+    cfg.tracker.kf_ref_ratio = kf_ratio
+    cfg.tracker.min_frames_between_kf = 3
+    cfg.tracker.max_frames_between_kf = 15
+    cfg.mapping.kf_culling = True
+    tr._compact_map()
+    i = N_POPULATE
+    for img, stamp in frames[i:i + N_WARM]:
+        tr.process_frame(img, stamp)
+    i += N_WARM
+    tr._drain_pipeline()
+    windows, calls = [], {"busy": [], "idle": []}
+    for _ in range(N_WINDOWS):
+        fails = tr.stats["track_fail"]
+        tw = time.perf_counter()
+        for img, stamp in frames[i:i + N_WINDOW]:
+            busy = tr._map_queue.unfinished_tasks > 0
+            tc = time.perf_counter()
+            tr.process_frame(img, stamp)
+            calls["busy" if busy else "idle"].append((time.perf_counter() - tc) * 1e3)
+        i += N_WINDOW
+        tr._drain_pipeline()
+        windows.append(((time.perf_counter() - tw) / N_WINDOW * 1e3,
+                        tr.stats["track_fail"] - fails, int(tr.map.n_kf), tr.stats["n_loops"]))
+    tr.finish()
+    torch.cuda.synchronize()
+    launches = {"fast_scores_nms": cuda_fast.launches,
+                "knn_match_fused": cuda_matcher.launches}
+    ate = trajectory_ate(tr, ts)
+    kf_ate_m, _ = kf_ate(tr.map, float(ts[0]))
+    st = dict(tr.stats)
+    state = tr.state
+    tr.shutdown_mapping()
+    joined = tr._mapper_thread is None and not mapper.is_alive() and tr._gba_thread is None
+    for n, (ms_, f, k, lp) in enumerate(windows):
+        print(f"P window {n}: {ms_:.2f} ms per frame (host clock, drained), failures {f}, "
+              f"keyframes {k}, loops {lp}; phase 3 synchronous median {sync_median_ms:.2f} ms "
+              f"(same call)")
+    for name, v in calls.items():
+        log(f"[smoke] P process_frame calls with the mapper {name}: {len(v)}, median "
+            f"{np.median(v) if v else float('nan'):.2f} ms, p90 "
+            f"{np.percentile(v, 90) if v else float('nan'):.2f} ms (host)")
+    ref = REF_PRODUCTION
+    print(f"P production: populate {populate[0]} KFs, {populate[1]} live landmarks, "
+          f"{populate[2]} failures, {populate[3]:.1f} s; ATE {ate:.6f} m (reference "
+          f"{ref['ate_m']}), keyframe ATE {kf_ate_m:.6f} m (reference {ref['kf_ate_m']}); "
+          f"loops {st['n_loops']} {tr.loop_closer.loop_edges}; async GBA started "
+          f"{st['n_gba_started']}, merged {st['n_gba_merged']}, aborted "
+          f"{st['n_gba_aborted']}; mapper errors {st['mapper_errors']}, GBA errors "
+          f"{st['gba_errors']}; frames skipped {st['frames_skipped']}; launches {launches}")
+    log(f"[smoke] P events (kind, frame id when seen, detail): {events}")
+    fl = np.asarray(in_flight or [(0, 0)], np.float64)
+    log(f"[smoke] P chunks in flight at a finalize: mean {fl[:, 0].mean():.2f}, max "
+        f"{int(fl[:, 0].max())}; consumed per finalize: mean {fl[:, 1].mean():.2f}; "
+        f"finalizes that consumed nothing: {int((fl[:, 1] == 0).sum())} of {len(fl)}")
+    for err in tr.errors:
+        log(err)
+    # the reference's keyframes are worse than its trajectory (fault 1: its
+    # GBA never merges): the port's keyframes are held to the trajectory bound
+    kf_bound = ate_within(kf_ate_m, ref["ate_m"]) if ref["kf_ate_m"] is None or \
+        ref["kf_ate_m"] > ref["ate_m"] else ate_within(kf_ate_m, ref["kf_ate_m"])
+    checks = {
+        "P: state OK, no failure in a window":
+            state == OK and all(w[1] == 0 for w in windows),
+        "P: at least one loop": st["n_loops"] >= 1,
+        "P: at least one async GBA merged": st["n_gba_merged"] >= 1,
+        "P: no mapper or GBA error": st["mapper_errors"] == 0 and st["gba_errors"] == 0,
+        "P: every thread joined": joined,
+        "P: kernel 1 once per extracted frame":
+            launches["fast_scores_nms"] == N_PRODUCTION - st["frames_skipped"],
+        "P: kernel 2 launched": launches["knn_match_fused"] >= 1,
+        "P: ATE within the reference's bound": ate_within(ate, ref["ate_m"]),
+        "P: keyframe ATE within its bound": kf_bound,
+    }
+    return checks, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("[smoke] CUDA is not available: this smoke test needs one CUDA card")
@@ -839,6 +1003,8 @@ def run(jobs, t_start) -> int:
     checks.update(c)
     del imgs_f
     c, by_path["compaction"] = phase_compact(dev, imgs[:N_COMPACT], ts[:N_COMPACT], rig)
+    checks.update(c)
+    c, by_path["production"] = phase_production(dev, imgs, ts, rig, med)
     checks.update(c)
     for path, counts in by_path.items():
         for name, n in counts.items():

@@ -9,6 +9,7 @@ product on the card is a full f32 product.
 """
 from __future__ import annotations
 
+import contextlib
 import subprocess
 
 import numpy as np
@@ -44,6 +45,18 @@ def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
     if dev.type != "cuda":
         return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def on_device(dev: torch.device):
+    """Context in which the calling thread's current card is `dev` (a new
+    thread starts on card 0); nothing to do for the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor's values as a numpy array (waits for the card); an array
+    as it is."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def card_line() -> str:

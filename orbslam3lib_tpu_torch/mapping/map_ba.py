@@ -1,9 +1,11 @@
 """Map-level bundle adjustment: the keyframe-window gather and scatter
 around `local_ba.bundle_adjust` (port of
-`orbslam3lib_tpu/mapping/map_ba.py:28-141`), and the chunked global BA.
+`orbslam3lib_tpu/mapping/map_ba.py`), the chunked global BA, its
+single-device route (`global_bundle_adjust_auto`) and the merge of an
+asynchronous global BA into a map that moved on (`merge_gba_result`).
 
-`merge_gba_result` waits for the asynchronous global BA, and the
-landmark-sharded `global_bundle_adjust_dist` for the port of `parallel/`.
+The landmark-sharded `global_bundle_adjust_dist` waits for the port of
+`parallel/` (ROADMAP queue 1, item 6: dist_ba).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from ..models import map_state as ms
 from ..ops.fast import topk_stable
 from ..ops.pyramid import scale_factors_on
+from ..utils import lie
 from .local_ba import BAProblem, bundle_adjust
 
 
@@ -131,3 +134,73 @@ def global_bundle_adjust(m: ms.MapState, cam_params, bf: float,
         if should_abort is not None and should_abort():
             break
     return m
+
+
+def global_bundle_adjust_auto(m: ms.MapState, cam_params, bf: float,
+                              cam_model: int = 0, n_iters: int = 10, chunk: int = 5,
+                              n_ba_points: Optional[int] = None,
+                              should_abort: Optional[Callable[[], bool]] = None
+                              ) -> ms.MapState:
+    """Global BA on what the process has (reference :144-163): one card (or
+    the CPU) takes `global_bundle_adjust`. A process that sees more than one
+    card raises: the landmark-sharded route is not ported yet, and the port
+    does not fall back to one card quietly."""
+    if m.kf_R.device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"{torch.cuda.device_count()} cards: the sharded global BA is not ported "
+            "(ROADMAP queue 1, item 6: parallel/dist_ba.py and global_bundle_adjust_dist)")
+    return global_bundle_adjust(m, cam_params, bf, cam_model=cam_model, n_iters=n_iters,
+                                chunk=chunk, n_ba_points=n_ba_points,
+                                should_abort=should_abort)
+
+
+def merge_gba_result(m_now: ms.MapState, gba_R, gba_t, gba_mp_pos, n_kf0: int,
+                     n_kf_now: int, mp_valid0, mp_first_kf0) -> ms.MapState:
+    """Fold an asynchronous global BA's result into the map that kept
+    moving while it ran (the tail of RunGlobalBundleAdjustment,
+    LoopClosing.cc:1240+; reference :208-261). Returns `m_now` with new
+    kf_R, kf_t and mp_pos tensors; reads nothing back to the host.
+
+    Keyframes: ids are append-only between compactions and a compaction
+    aborts the GBA, so the keyframes of the snapshot are the valid ones
+    below `n_kf0` (its count at launch) and take the GBA's pose; those made
+    since, `n_kf0 .. n_kf_now - 1` (host counts), are corrected by walking
+    the spanning tree in id order (a parent precedes its child): each
+    child's pose relative to its parent is kept on the parent's corrected
+    pose.
+
+    Landmarks: a slot's occupant is the one the GBA optimised when it was
+    live at launch and is live now with the same first keyframe
+    (`mp_valid0`, `mp_first_kf0`: the snapshot's); it takes the GBA's
+    position. Every other live landmark re-anchors through its first
+    keyframe's (before, after) pose pair. The reference instead takes the
+    slots below the launch-time landmark count (`pp < n_mp0`, its :252):
+    since slots are recycled (lowest free first) and the count is the live
+    count, a landmark spawned during the GBA into a freed slot below it gets
+    the dead occupant's GBA position, and one of the snapshot at a slot at
+    or above it loses its own."""
+    K = m_now.max_kf
+    dev = m_now.kf_R.device
+    in_gba = (torch.arange(K, device=dev) < n_kf0) & m_now.kf_valid
+    R_new = torch.where(in_gba[:, None, None], gba_R, m_now.kf_R)
+    t_new = torch.where(in_gba[:, None], gba_t, m_now.kf_t)
+    for k in range(n_kf0, n_kf_now):
+        par = m_now.kf_parent[k]
+        parc = torch.clamp(par, 0, K - 1).long()
+        Rpi, tpi = lie.se3_inverse(ms.row(m_now.kf_R, parc), ms.row(m_now.kf_t, parc))
+        Rd, td = lie.se3_compose(m_now.kf_R[k], m_now.kf_t[k], Rpi, tpi)
+        Rc, tc = lie.se3_compose(Rd, td, ms.row(R_new, parc), ms.row(t_new, parc))
+        do = m_now.kf_valid[k] & (par >= 0)
+        R_new[k] = torch.where(do, Rc, R_new[k])
+        t_new[k] = torch.where(do, tc, t_new[k])
+
+    in_gba_mp = mp_valid0 & m_now.mp_valid & (m_now.mp_first_kf == mp_first_kf0)
+    ref = torch.clamp(m_now.mp_first_kf, 0, K - 1).long()
+    has_ref = (m_now.mp_first_kf >= 0) & m_now.mp_valid
+    p_cam = lie.se3_apply(m_now.kf_R[ref], m_now.kf_t[ref], m_now.mp_pos)
+    p_re = torch.einsum("pji,pj->pi", R_new[ref], p_cam - t_new[ref])
+    g = in_gba_mp.to(torch.float32)[:, None]
+    h = (has_ref & ~in_gba_mp).to(torch.float32)[:, None]
+    m_now.kf_R, m_now.kf_t = R_new, t_new
+    m_now.mp_pos = g * gba_mp_pos + h * p_re + (1.0 - g - h) * m_now.mp_pos
+    return m_now

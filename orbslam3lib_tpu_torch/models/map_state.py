@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -115,6 +115,12 @@ def from_numpy(arrays: Dict[str, np.ndarray],
                        for k in FIELDS})
 
 
+def clone_map(m: MapState) -> MapState:
+    """A copy of every field (queued on the map's device, no host read): a
+    snapshot that later in-place updates of `m` leave as it is."""
+    return MapState(**{k: getattr(m, k).clone() for k in FIELDS})
+
+
 def to_numpy(m: MapState) -> Dict[str, np.ndarray]:
     """Dict of numpy arrays keyed by field name (the inverse of from_numpy)."""
     return {k: getattr(m, k).cpu().numpy() for k in FIELDS}
@@ -146,13 +152,16 @@ def mp_observation_count(m: MapState) -> torch.Tensor:
 
 
 def insert_keyframe(m: MapState, R, t, ts, xy, level, desc, feat_valid,
-                    mp_assoc, depth, v=None, bg=None, ba=None, angle=None):
+                    mp_assoc, depth, v=None, bg=None, ba=None, angle=None,
+                    kf_id: Optional[int] = None):
     """Write a keyframe into slot n_kf and register its observations, in
     place. mp_assoc (F,): landmark already matched to each feature (-1 if
-    none). Returns (m, kf_id), kf_id -1 when the map is full (nothing is
-    written). Reference: KeyFrame ctor + MapPoint::AddObservation +
-    KeyFrame::UpdateConnections (Tracking::CreateNewKeyFrame)."""
-    k = int(m.n_kf)
+    none). `kf_id`, when the caller keeps n_kf on the host, is that count:
+    then nothing is read back from the map's device. Returns (m, kf_id),
+    kf_id -1 when the map is full (nothing is written). Reference:
+    KeyFrame ctor + MapPoint::AddObservation + KeyFrame::UpdateConnections
+    (Tracking::CreateNewKeyFrame)."""
+    k = int(m.n_kf) if kf_id is None else kf_id
     if k >= m.max_kf:
         return m, -1
     dev = m.kf_R.device

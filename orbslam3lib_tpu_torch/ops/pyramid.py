@@ -47,6 +47,13 @@ def scale_factors_on(n_levels: int, device: torch.device) -> torch.Tensor:
 
 
 @lru_cache(maxsize=None)
+def level_shapes_on(h0: int, w0: int, n_levels: int, device: torch.device) -> torch.Tensor:
+    """`level_shapes` as an (L, 2) int64 tensor on `device`, made once per
+    shape and device (no host copy, so no wait, per frame)."""
+    return torch.as_tensor(np.asarray(level_shapes(h0, w0, n_levels)), device=device)
+
+
+@lru_cache(maxsize=None)
 def _resize_matrix(n_in: int, n_out: int) -> np.ndarray:
     """Dense (n_out, n_in) bilinear interpolation matrix, pixel-centre
     convention (align-corners=False)."""

@@ -22,7 +22,7 @@ from ..ops.fast import topk_stable
 from ..ops.masks import BIG, is_finite_match, leq_int, penalize, step01
 from ..ops.matcher import hamming_matrix
 from ..ops.orient_brief import gather_patches
-from ..ops.pyramid import level_shapes, scale_factors_on
+from ..ops.pyramid import level_shapes_on, scale_factors_on
 from ..utils import cameras, lie
 
 TH_HIGH = 100.0
@@ -221,7 +221,7 @@ def refine_stereo_sad(canvas_l, canvas_r, xy_l, level_l, valid_l, u_r, depth,
     yi = torch.round(yl).to(torch.int64)
     ri = torch.round(xr0).to(torch.int64)
 
-    shp = torch.as_tensor(np.asarray(level_shapes(Hh, Wh, n_levels)), device=dev)
+    shp = level_shapes_on(Hh, Wh, n_levels, dev)
     lh, lw = shp[lvl, 0], shp[lvl, 1]
     pad = W_R + SRCH + 1
     ok = matched & (xi >= pad) & (xi < lw - pad) & \
@@ -266,7 +266,8 @@ def refine_stereo_sad(canvas_l, canvas_r, xy_l, level_l, valid_l, u_r, depth,
     # torch.median)
     n_ok = ok.sum()
     s_sorted = torch.sort(torch.where(ok, dC, torch.full_like(dC, float("inf")))).values
-    med = s_sorted[torch.clamp(torch.div(n_ok - 1, 2, rounding_mode="floor"), 0, N - 1)]
+    mid = torch.clamp(torch.div(n_ok - 1, 2, rounding_mode="floor"), 0, N - 1)
+    med = s_sorted.index_select(0, mid.reshape(1))[0]   # no host read of the index
     ok = ok & (dC <= 1.5 * 1.4 * med)
 
     u_out = torch.where(ok, u_r_ref, u_r)

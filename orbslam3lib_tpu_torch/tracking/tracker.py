@@ -1,6 +1,8 @@
-"""Synchronous stereo SLAM (port of the synchronous stereo path of
-`orbslam3lib_tpu/tracking/tracker.py`, the reference's `Tracker(cfg,
-"stereo", enable_loop_closing=..., pipeline=0)`).
+"""Stereo SLAM (port of the stereo paths of
+`orbslam3lib_tpu/tracking/tracker.py`): the synchronous tracker, the
+pipelined tracker of bench.py's `full_slam` mode (`pipeline`, `chunk`),
+the background mapper thread (`async_mapping`) and the asynchronous global
+BA (`cfg.mapping.async_gba`).
 
 Three stereo rigs are ported: rectified pinhole stereo; raw distorted
 stereo with `cfg.stereo.rectify` (radial-tangential or KB8 eyes, rectified
@@ -27,6 +29,40 @@ loop closing on, the probe's pack is read and `LoopCloser` may verify a
 candidate, correct the loop and run the global BA, all inside the
 keyframe's frame (reference :1879-1927, `_consume_probes` :1017-1050).
 
+The pipelined path (`pipeline > 1`, steady-state tracking only; reference
+:884-1281): frames are buffered into chunks of `chunk` and each chunk runs
+`_frame_step_chunk` against a map that is read-only for the chunk, with the
+local-map mask computed once per chunk; nothing in a chunk reads the card.
+Each chunk's 16-float packs (and the loop probes waiting since the last
+chunk) are copied into a pinned host buffer with an event recorded after
+the copy; the host consumes a chunk when its event has fired, or blocks on
+the oldest once more than `pipeline` frames are in flight. The consumer
+runs the keyframe policy per frame, one threshold-controller step per
+batch, and creates keyframes whose mapping runs inline or on the mapper
+thread; there the loop probe is only dispatched and rides the next chunk's
+read (lagged loops). A loss inside a burst drops every frame in flight and
+returns to the synchronous path.
+
+Threads (reference :1747-1857): with `async_mapping` one mapper thread
+takes keyframe ids from a queue and runs `_mapping_pipeline` under
+`_map_lock` (the reference's Map::mMutexMapUpdate); with
+`cfg.mapping.async_gba` a loop correction starts the global BA on a thread
+of its own, on a snapshot of the map, merged back by `merge_gba_result`.
+Every thread that touches the card runs on the tracker's card and on its
+one stream, so the card runs work in the order the threads enqueue it. The
+mapper thread survives an exception and counts it in
+`stats["mapper_errors"]` (the GBA thread in `stats["gba_errors"]`).
+
+Two faults of the reference's asynchronous code are not carried over:
+its pipelined keyframe (`_create_keyframe_from_record`, :1259-1261) aborts
+the dedicated GBA thread, whose comment (:1737-1740) says only a newer loop
+should; here only a newer loop, a compaction or a map reset does. And its
+`merge_gba_result` picks the landmarks the GBA optimised by a slot count
+(see `mapping/map_ba.merge_gba_result`). A drain dispatches only the
+buffered frames: the reference pads a short chunk by repeating its last
+frame (a static shape for `lax.scan`), which counts that frame's landmark
+visibility twice.
+
 A frame that misses its inliers twice counts a failure, enters
 RECENTLY_LOST and tries BoW relocalisation against up to 3 candidate
 keyframes (kernel 2 matches it to each); after 5 s lost the map is dropped
@@ -35,24 +71,29 @@ and tracking starts over (`_handle_loss`).
 What this slice leaves out, each raising `NotImplementedError` that names
 its ROADMAP item where a configuration asks for it: the Atlas (a lost map
 of more than 10 keyframes is dropped, not archived, and no map merging),
-mono, IMU (so no inertial dead reckoning while lost), the fixed local-BA
-window, and the async, pipelined and asynchronous-global-BA paths.
+mono, IMU (so no inertial dead reckoning while lost) and the fixed
+local-BA window.
 """
 from __future__ import annotations
 
 import os
+import queue
+import sys
+import threading
 import time
+import traceback
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import CameraConfig, SlamConfig
-from ..device import get_device
+from ..device import get_device, on_device, to_device, to_host
 from ..mapping import local_mapping as lm_ops
 from ..mapping.loop_closing import LoopCloser, mapper_step_fused
 from ..mapping.map_ba import inv_sigma2 as _inv_sigma2
-from ..mapping.map_ba import map_window_ba as _local_ba
+from ..mapping.map_ba import (global_bundle_adjust_auto, map_window_ba as _local_ba,
+                              merge_gba_result)
 from ..models import map_state as ms
 from ..models.vocabulary import (DEFAULT_VOCAB_PATH, bow_from_descriptors,
                                  load_vocabulary, train_vocabulary)
@@ -72,11 +113,15 @@ RECENTLY_LOST = 2
 LOST = 3
 
 
-def _local_map_mask(m: ms.MapState, prev_mp: torch.Tensor) -> torch.Tensor:
+def _local_map_mask(m: ms.MapState, prev_mp: torch.Tensor,
+                    ref_kf: Optional[int] = None) -> torch.Tensor:
     """Local-map landmark mask (TrackLocalMap's UpdateLocalKeyFrames +
     UpdateLocalPoints, Tracking.cc:3478-3560): keyframes observing the
     previous frame's tracked landmarks, plus their covisible neighbours,
-    contribute their landmarks. Empty -> the whole map."""
+    contribute their landmarks. With `ref_kf` (a host keyframe id, the
+    pipelined chunk's last keyframe) and no bindings at all (a chain just
+    re-seeded), the reference keyframe seeds the local set instead of the
+    whole map (reference :80-88). Empty -> the whole map."""
     P = m.max_mp
     prev_ok = prev_mp >= 0
     ind = torch.zeros(P + 1, device=prev_mp.device).index_add_(
@@ -84,6 +129,9 @@ def _local_map_mask(m: ms.MapState, prev_mp: torch.Tensor) -> torch.Tensor:
         torch.ones(prev_mp.shape, device=prev_mp.device))[:P]
     O = ms.observation_matrix(m)                     # (K, P)
     k1 = ((O @ ind) > 0) & m.kf_valid                # local keyframes
+    if ref_kf is not None and ref_kf >= 0:
+        ref_vec = torch.arange(m.max_kf, device=prev_mp.device) == min(ref_kf, m.max_kf - 1)
+        k1 = k1 | (ref_vec & ~torch.any(prev_ok) & m.kf_valid)
     covis = O @ (O.T @ k1.to(torch.float32))
     k2 = (covis > 0) & m.kf_valid
     mask = (O.T @ (k1 | k2).to(torch.float32)) > 0   # (P,) local points
@@ -95,14 +143,15 @@ def _two_stage_core(m: ms.MapState, R0, t0, feat_xy, feat_level, feat_desc,
                     r_coarse: float, r_fine: float, cam_model: int,
                     img_w: int, img_h: int, n_levels: int, pose_rounds: int,
                     pose_iters: int, prev_mp=None, prev_angle=None,
-                    feat_angle=None, local_only: bool = False):
+                    feat_angle=None, local_only: bool = False, lm_mask=None):
     """Two-stage projection search + pose optimisation against the map.
 
     Stage 1 (TrackWithMotionModel): with `prev_mp` (F,), the previous
     frame's tracked landmark ids, only those are searched at the coarse
     radius, pruned by the rotation-consistency histogram when both frames'
     angles are given. Stage 2 (TrackLocalMap): the (local) map at the fine
-    radius.
+    radius. `lm_mask` (P,) restricts stage 2 (the pipelined chunk computes
+    it once); without it `local_only` computes it from `prev_mp`.
 
     Returns (R, t, mp_feat (P,), inlier_per_mp (P,), n_inliers, visible (P,),
     obs, feat_tracked (F,), feat_mp_out (F,)).
@@ -110,7 +159,8 @@ def _two_stage_core(m: ms.MapState, R0, t0, feat_xy, feat_level, feat_desc,
     F = feat_xy.shape[0]
     P = m.max_mp
     dev = feat_xy.device
-    lm_mask = _local_map_mask(m, prev_mp) if local_only and prev_mp is not None else None
+    if lm_mask is None and local_only and prev_mp is not None:
+        lm_mask = _local_map_mask(m, prev_mp)
     obs_is2 = _inv_sigma2(feat_level, n_levels)
     u_r_obs = torch.where(depth > 0, u_right, torch.zeros_like(u_right))
 
@@ -168,10 +218,11 @@ def _insert_kf_and_spawn(m: ms.MapState, R, t, ts: float, feat_xy, feat_level,
                          cam_params, close_depth: float, cam_model: int,
                          n_levels: int, v=None, bg=None, ba=None, angle=None,
                          img_w: int = 640, img_h: int = 400,
-                         th_far: float = 0.0):
+                         th_far: float = 0.0, kf_id: Optional[int] = None):
     """Insert a keyframe, bind its tracked landmarks, and spawn landmarks for
     unmatched close-stereo features (CreateNewKeyFrame, Tracking.cc:3277),
-    updating `m` in place. Returns (m, kf_id), -1 when the map is full."""
+    updating `m` in place. `kf_id`: the host's mirror of n_kf, if kept (no
+    read of the map's count). Returns (m, kf_id), -1 when the map is full."""
     F = feat_xy.shape[0]
     P = m.max_mp
     dev = feat_xy.device
@@ -200,7 +251,7 @@ def _insert_kf_and_spawn(m: ms.MapState, R, t, ts: float, feat_xy, feat_level,
 
     m, kf_id = ms.insert_keyframe(m, R, t, ts, feat_xy, feat_level, feat_desc,
                                   feat_valid, assoc, depth, v=v, bg=bg, ba=ba,
-                                  angle=angle)
+                                  angle=angle, kf_id=kf_id)
     if kf_id < 0:
         return m, kf_id
 
@@ -225,6 +276,84 @@ def _insert_kf_and_spawn(m: ms.MapState, R, t, ts: float, feat_xy, feat_level,
     return m, kf_id
 
 
+# the pipelined frame's scalar pack: [n_valid, n_inliers, n_close_tracked,
+# n_close_untracked, R (9), t (3)] (reference :209-211)
+PACK_LEN = 16
+
+
+def _frame_body(m: ms.MapState, carry, img_pair, threshold: float, cam_params,
+                fisheye_rig, bf: float, min_z: float, close_depth: float,
+                r_coarse: float, r_fine: float, cam_model: int, img_w: int,
+                img_h: int, n_levels: int, pose_rounds: int, pose_iters: int,
+                max_kp: int, fisheye: bool, sad_refine: bool,
+                local_only: bool = False, lm_mask=None):
+    """One frame of the pipelined stereo hot path (reference :214-271):
+    extraction (kernel 1) -> stereo match (+ SAD refinement), or the
+    fisheye matcher -> constant-velocity prediction -> two-stage search +
+    pose LM -> the velocity and the landmark-statistics updates. Reads
+    nothing back to the host.
+
+    carry = (R, t, R_vel, t_vel, prev_mp, prev_angle, mp_visible, mp_found);
+    returns (carry', outs) with outs = (pack (16,), then what keyframe
+    creation needs: left-eye xy, level, angle, desc, valid, u_right, depth,
+    mp_feat). `fisheye_rig` = (cam2_params, R_lr, t_lr) on the fisheye rig."""
+    (R_prev, t_prev, R_vel, t_vel, prev_mp, prev_angle, mp_visible, mp_found) = carry
+    want_canvas = sad_refine and not fisheye
+    ex = extract_orb_stereo(img_pair, threshold, max_kp=max_kp, n_levels=n_levels,
+                            return_canvas=want_canvas)
+    feats, canvas = ex if want_canvas else (ex, None)
+    if fisheye:
+        u_r, depth = matching.match_fisheye_stereo(
+            feats.xy[0], feats.desc[0], feats.valid[0], feats.xy[1], feats.desc[1],
+            feats.valid[1], cam_params, *fisheye_rig, bf)
+    else:
+        u_r, depth = matching.match_rectified_stereo(
+            feats.xy[0], feats.level[0], feats.desc[0], feats.valid[0],
+            feats.xy[1], feats.level[1], feats.desc[1], feats.valid[1],
+            bf, min_z, n_levels=n_levels)
+        if want_canvas:
+            u_r, depth = matching.refine_stereo_sad(
+                canvas[0], canvas[1], feats.xy[0], feats.level[0], feats.valid[0],
+                u_r, depth, bf=bf, min_z=min_z, n_levels=n_levels)
+    R0, t0 = lie.se3_compose(R_vel, t_vel, R_prev, t_prev)
+    (R, t, mp_feat, _, n_inl, visible, _, feat_tracked, feat_mp_out) = _two_stage_core(
+        m, R0, t0, feats.xy[0], feats.level[0], feats.desc[0], feats.valid[0], u_r,
+        depth, cam_params, bf, r_coarse, r_fine, cam_model, img_w, img_h, n_levels,
+        pose_rounds, pose_iters, prev_mp=prev_mp, prev_angle=prev_angle,
+        feat_angle=feats.angle[0], local_only=local_only, lm_mask=lm_mask)
+    Ri, ti = lie.se3_inverse(R_prev, t_prev)
+    R_vel2, t_vel2 = lie.se3_compose(R, t, Ri, ti)
+    close = feats.valid[0] & (depth > 0.05) & (depth < close_depth)
+    n_close_t = torch.sum((close & feat_tracked).to(torch.float32))
+    n_close_u = torch.sum((close & ~feat_tracked).to(torch.float32))
+    pack = torch.cat([feats.n_valid[:1].to(torch.float32),
+                      torch.stack([n_inl.to(torch.float32), n_close_t, n_close_u]),
+                      R.reshape(-1), t])
+    carry2 = (R, t, R_vel2, t_vel2, feat_mp_out, feats.angle[0],
+              mp_visible + visible.to(torch.float32),
+              mp_found + (mp_feat >= 0).to(torch.float32))
+    outs = (pack, feats.xy[0], feats.level[0], feats.angle[0], feats.desc[0],
+            feats.valid[0], u_r, depth, mp_feat)
+    return carry2, outs
+
+
+def _frame_step_chunk(m: ms.MapState, chain, imgs: List[torch.Tensor], threshold: float,
+                      cam_params, fisheye_rig, local_only: bool, ref_kf: int, **kw):
+    """A chunk of frames against a map that is read-only for the chunk
+    (reference :278-313, whose `lax.scan` becomes a loop threading the
+    carry): the local-map mask is computed once, from the chunk's entry
+    bindings. chain = (R, t, R_vel, t_vel, prev_mp, prev_angle). Returns
+    (chain', mp_visible', mp_found', [outs per frame])."""
+    carry = tuple(chain) + (m.mp_visible, m.mp_found)
+    lm_mask = _local_map_mask(m, chain[4], ref_kf=ref_kf) if local_only else None
+    outs = []
+    for img_pair in imgs:
+        carry, o = _frame_body(m, carry, img_pair, threshold, cam_params, fisheye_rig,
+                               local_only=local_only, lm_mask=lm_mask, **kw)
+        outs.append(o)
+    return carry[:6], carry[6], carry[7], outs
+
+
 def check_ported(cfg: SlamConfig, sensor: str) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a sensor or
     option the port does not have yet."""
@@ -247,14 +376,52 @@ def check_ported(cfg: SlamConfig, sensor: str) -> None:
         raise NotImplementedError(
             "only the covisibility local-BA window is ported (ROADMAP queue 1, "
             "item 7: fixed local-BA window)")
-    if cfg.mapping.async_gba:
-        raise NotImplementedError(
-            "only the synchronous global BA is ported (ROADMAP queue 1, "
-            "item 7: async GBA)")
+
+
+def _compose_rows(packs: np.ndarray, dR: np.ndarray, dt: np.ndarray) -> None:
+    """Carry frame poses (rows of 16-float packs, in place) into a moved
+    world, keeping each pose relative to the keyframe whose rigid delta
+    (dR, dt) this is: T' = T o (dR, dt), in float64 (reference :1130-1135)."""
+    for row_v in packs:
+        Rf = row_v[4:13].reshape(3, 3).astype(np.float64)
+        tf = row_v[13:16].astype(np.float64)
+        row_v[4:13] = (Rf @ dR).reshape(-1)
+        row_v[13:16] = Rf @ dt + tf
+
+
+class _Chunk:
+    """One dispatched chunk of the pipelined path: its frames' stamps and
+    ids, each frame's outputs (`_frame_body`), the keyframe ids of the loop
+    probes riding its read, and the pinned host buffer its packs and probes
+    are copied into, with the event recorded after the copy (None on the
+    CPU, where the copy is done when it returns); `moves`: the rigid deltas
+    of GBA merges that landed while it was in flight, on the card."""
+
+    __slots__ = ("ts", "fids", "outs", "probe_kids", "host", "event", "moves")
+
+    def __init__(self, ts, fids, outs, probe_kids, host, event):
+        self.ts, self.fids, self.outs = ts, fids, outs
+        self.probe_kids, self.host, self.event = probe_kids, host, event
+        self.moves = []
+
+    def done(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def read(self):
+        """(packs (C, 16) writable, [(kid, probe (16,))]), waiting for the
+        copy if it is still in flight."""
+        if self.event is not None:
+            self.event.synchronize()
+        vec = self.host.numpy()
+        C = len(self.ts)
+        pack = vec[:C * PACK_LEN].reshape(C, PACK_LEN).copy()
+        off = C * PACK_LEN
+        return pack, [(kid, vec[off + 16 * i: off + 16 * (i + 1)])
+                      for i, kid in enumerate(self.probe_kids)]
 
 
 class Tracker:
-    """Host-side state machine of synchronous stereo tracking.
+    """Host-side state machine of stereo tracking.
 
     `device` is where the map, the frames and all per-frame work live: the
     card by default, exactly as given otherwise (`device.get_device`, which
@@ -263,15 +430,24 @@ class Tracker:
     of the stages `extract`, `stereo_match` and `track` per frame
     (`self.timer`), waiting for the card at the end of each.
 
+    `pipeline > 1` turns on the pipelined path with up to `pipeline` frames
+    in flight, in chunks of `chunk` frames; `async_mapping` starts the
+    mapper thread (stop it with `shutdown_mapping`); `cfg.mapping.async_gba`
+    runs the post-loop global BA on a thread of its own. `finish()` flushes
+    the pipeline and waits for both threads' work.
+
     With `cfg.stereo.rectify`, `__init__` changes `cfg` as the reference
     does: the camera becomes the shared rectified pinhole, the baseline the
     rectified one, `camera2`, `R_lr` and `t_lr` are cleared and `imu.R_bc`
     turns with the left eye. A second tracker needs a fresh `SlamConfig`.
     """
 
+    PROBE_SLOTS = 8   # loop probes riding one chunk's read, at most
+
     def __init__(self, cfg: SlamConfig, sensor: str = "stereo", *,
                  device: torch.device | str = "cuda",
-                 enable_loop_closing: bool = True, enable_timing: bool = False):
+                 enable_loop_closing: bool = True, enable_timing: bool = False,
+                 async_mapping: bool = False, pipeline: int = 0, chunk: int = 1):
         check_ported(cfg, sensor)
         self.cfg = cfg
         self.sensor = sensor
@@ -295,8 +471,10 @@ class Tracker:
             t0=cfg.orb.fast_threshold)
         self.cam_params = torch.as_tensor(cfg.camera.params, device=self.device)
         self.state = NOT_INITIALIZED
-        self.pose: Optional[Tuple[torch.Tensor, torch.Tensor]] = None   # Tcw
-        self.vel: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        # Tcw and the velocity: device tensors, or f32 numpy arrays after the
+        # pipelined consumer (kept on the host there; `_dev` uploads them)
+        self.pose: Optional[Tuple] = None
+        self.vel: Optional[Tuple] = None
         self.frame_state_v = torch.zeros(3, device=self.device)
         self.frame_id = 0
         self.last_kf_frame = -999
@@ -307,7 +485,10 @@ class Tracker:
         self.stats = {"n_kf": 0, "n_frames": 0, "track_fail": 0,
                       "ref_kf_fallbacks": 0, "n_reloc": 0, "n_loops": 0,
                       "n_resets": 0, "n_new_maps": 0,
-                      "n_mapping_steps": 0, "n_local_ba": 0, "n_compactions": 0}
+                      "n_mapping_steps": 0, "n_local_ba": 0, "n_compactions": 0,
+                      "mapper_errors": 0, "n_gba_started": 0, "n_gba_merged": 0,
+                      "n_gba_aborted": 0, "gba_errors": 0, "frames_skipped": 0}
+        self.errors: List[str] = []   # tracebacks of the threads' caught failures
         self._th_far = (float(cfg.tracker.th_far_points)
                         if cfg.tracker.th_far_points > 0 else None)
         self.place_rec = None         # BoW keyframe database (lazy)
@@ -316,7 +497,7 @@ class Tracker:
         self._mp_pressure = False     # landmark capacity nearly used
         self._mp_pressure_probe = None  # (n_mp copy, its event), every 8th keyframe
         self._compact_backoff = 0     # earliest frame id of the next compaction
-        self._kf_wall = 0.0           # host time of the last keyframe's creation
+        self._kf_wall: dict = {}      # keyframe id -> host time of its creation
         self.lost_since: Optional[float] = None
         self._n_kf_host = 0           # host mirror of map.n_kf
         self._ts_origin: Optional[float] = None
@@ -324,6 +505,27 @@ class Tracker:
         # previous frame's bindings (feature slot -> landmark id) and angles
         self._prev_feat_mp: Optional[torch.Tensor] = None
         self._prev_feat_angle: Optional[torch.Tensor] = None
+        # the pipelined path
+        self.pipeline = int(pipeline)
+        self.chunk = max(1, int(chunk))
+        self._img_buf: List = []      # (frame on the device, ts, frame id)
+        self._pending: List[_Chunk] = []
+        self._chain = None            # (R, t, R_vel, t_vel, prev_mp, prev_angle)
+        self._probe_unfetched: List = []  # (kid, probe pack on the device)
+        # the mapper thread and the GBA thread (reference :578-609). Queue
+        # items are (map epoch, kid): a reset or a compaction starts a new
+        # epoch, and the mapper skips ids of an older map
+        self._map_lock = threading.RLock()
+        self._map_epoch = 0
+        self._map_queue: Optional[queue.Queue] = None
+        self._mapper_thread: Optional[threading.Thread] = None
+        self._mapper_stop = False
+        self._gba_thread: Optional[threading.Thread] = None
+        self._gba_abort = threading.Event()
+        if async_mapping:
+            self._map_queue = queue.Queue()
+            self._mapper_thread = threading.Thread(target=self._mapper_loop, daemon=True)
+            self._mapper_thread.start()
 
     def _setup_rectification(self):
         """Settings.cc:485 precomputeRectificationMaps (reference :486-516):
@@ -358,10 +560,19 @@ class Tracker:
         return (torch.eye(3, dtype=torch.float32, device=self.device),
                 torch.zeros(3, dtype=torch.float32, device=self.device))
 
+    def _dev(self, x) -> torch.Tensor:
+        """A pose part on the tracker's device (the pipelined consumer keeps
+        poses as host arrays; uploaded from pinned memory, no wait)."""
+        if isinstance(x, torch.Tensor):
+            return x
+        return to_device(np.asarray(x, np.float32), self.device)
+
     # -- per-frame entry ----------------------------------------------------
     def process_frame(self, img, ts: float) -> dict:
         """img: (2, H, W) rectified stereo pair (uint8 or float32; numpy or
-        tensor). Returns {"state", "n_inliers", ...} for the frame."""
+        tensor). Returns {"state", "n_inliers", ...} for the frame; on the
+        pipelined path the state and inliers of the last consumed frame,
+        with "pipelined": True."""
         cfg = self.cfg
         # timestamp guards (Tracking.cc:1871-1909): a backwards step resets
         # the map, a gap over 1 s starts a new one
@@ -379,8 +590,15 @@ class Tracker:
         if self.state == OK and self.frame_id >= self._compact_backoff and \
                 (self._mp_pressure or self._n_kf_host >= self.map.max_kf - 1):
             self._mp_pressure = False
+            self._drain_pipeline()
             if not self._compact_map():
                 self._compact_backoff = self.frame_id + 64
+
+        # the pipelined path: steady-state tracking only; initialisation and
+        # a loss drain it and run synchronously (reference :805-810)
+        if self.pipeline > 1 and self.state == OK:
+            return self._process_frame_pipelined(img, ts)
+        self._drain_pipeline()
 
         # no SAD refinement on the fisheye path (its rows are not epipolar)
         want_canvas = cfg.stereo.sad_refine and not cfg.stereo.fisheye
@@ -417,18 +635,21 @@ class Tracker:
         n_feat = int(feats.n_valid[0])
         self.threshold.update(n_feat)
 
-        if self.state == NOT_INITIALIZED:
-            out = self._initialize_stereo(feats, u_r, depth, ts, n_feat)
-        else:
-            with self.timer.stage("track"):
-                out = self._track(feats, u_r, depth, ts)
-                self._timer_sync()
+        # the map-touching section serialises against the mapper thread (the
+        # reference's per-frame Map::mMutexMapUpdate, Tracking.cc:1939)
+        with self._map_lock:
+            if self.state == NOT_INITIALIZED:
+                out = self._initialize_stereo(feats, u_r, depth, ts, n_feat)
+            else:
+                with self.timer.stage("track"):
+                    out = self._track(feats, u_r, depth, ts)
+                    self._timer_sync()
 
-        self.frame_id += 1
-        self.stats["n_frames"] += 1
-        if self.pose is not None:
-            R, t = self.pose
-            self.trajectory.append((ts, R.cpu().numpy(), t.cpu().numpy()))
+            self.frame_id += 1
+            self.stats["n_frames"] += 1
+            if self.pose is not None:
+                R, t = self.pose
+                self.trajectory.append((ts, to_host(R), to_host(t)))
         return out
 
     def _timer_sync(self):
@@ -487,8 +708,8 @@ class Tracker:
 
     def _track(self, feats: Features, u_r, depth, ts) -> dict:
         cfg = self.cfg
-        R_last, t_last = self.pose
-        Rv, tv = self.vel
+        R_last, t_last = (self._dev(x) for x in self.pose)
+        Rv, tv = (self._dev(x) for x in self.vel)
         R0, t0 = lie.se3_compose(Rv, tv, R_last, t_last)
         f0 = (feats.xy[0], feats.level[0], feats.desc[0], feats.valid[0])
 
@@ -606,26 +827,43 @@ class Tracker:
         self._clear_map()
 
     def _clear_map(self):
-        """An empty map, an empty keyframe database, NOT_INITIALIZED."""
-        mc = self.cfg.map
-        self.map = ms.empty_map(mc.max_kf, mc.max_mp, self.cfg.orb.max_kp,
-                                device=self.device)
-        if self.place_rec is not None:
-            self.place_rec = make_place_recognition(self.place_rec.voc, mc.max_kf)
-            if self.loop_closer is not None:
-                n_loops = self.loop_closer.n_loops
-                self.loop_closer = LoopCloser(self.cfg, self.place_rec, fix_scale=True)
-                self.loop_closer.n_loops = n_loops
-        self.state = NOT_INITIALIZED
-        self.pose = None
-        self.lost_since = None
-        self._n_kf_host = 0
-        self.last_kf_id = -1
-        self.last_kf_frame = -999
-        self.ref_kf_matches = 0
-        self._ts_origin = None
-        self._prev_feat_mp = None
-        self._prev_feat_angle = None
+        """An empty map, an empty keyframe database, NOT_INITIALIZED. A
+        running GBA is aborted (its snapshot is of the old map); the chunks
+        in flight, the buffered frames, the unread probes and the keyframes
+        still queued for the mapper belong to the old map and are dropped."""
+        with self._map_lock:
+            self._abort_gba_and_join()
+            self._new_map_epoch()
+            mc = self.cfg.map
+            self.map = ms.empty_map(mc.max_kf, mc.max_mp, self.cfg.orb.max_kp,
+                                    device=self.device)
+            if self.place_rec is not None:
+                self.place_rec = make_place_recognition(self.place_rec.voc, mc.max_kf)
+                if self.loop_closer is not None:
+                    n_loops = self.loop_closer.n_loops
+                    self.loop_closer = LoopCloser(self.cfg, self.place_rec, fix_scale=True)
+                    self.loop_closer.n_loops = n_loops
+            self.state = NOT_INITIALIZED
+            self.pose = None
+            self.lost_since = None
+            self._n_kf_host = 0
+            self.last_kf_id = -1
+            self.last_kf_frame = -999
+            self.ref_kf_matches = 0
+            self._ts_origin = None
+            self._prev_feat_mp = None
+            self._prev_feat_angle = None
+
+    def _new_map_epoch(self):
+        """The map's ids change meaning (a reset or a compaction): drop what
+        carries the old ones. The mapper skips queued ids of an older epoch."""
+        self._map_epoch += 1
+        self._pending = []
+        self.stats["frames_skipped"] += len(self._img_buf)
+        self._img_buf = []
+        self._probe_unfetched = []
+        self._chain = None
+        self._kf_wall = {}
 
     # -- keyframe policy (NeedNewKeyFrame, Tracking.cc:3125) ----------------
     def _need_new_keyframe(self, n_inliers, feats: Features, mp_feat, depth) -> bool:
@@ -646,19 +884,26 @@ class Tracker:
 
     def _need_new_keyframe_scalars(self, n_inliers, n_close_tracked,
                                    n_close_untracked, frame_id) -> bool:
-        """NeedNewKeyFrame from pre-reduced scalars; the mapper is always
-        idle in the synchronous slice."""
+        """NeedNewKeyFrame from pre-reduced scalars (reference
+        :1209-1235). With the mapper thread, c1b needs it idle, and a busy
+        mapper takes a stereo keyframe only while fewer than 3 wait
+        (Tracking.cc: KeyframesInQueue() < 3)."""
         cfg = self.cfg
         if self._n_kf_host >= self.map.max_kf - 1:
             return False
+        q = self._map_queue
+        mapper_idle = q is None or q.unfinished_tasks == 0
         frames_since = frame_id - self.last_kf_frame
         c1a = frames_since >= cfg.tracker.max_frames_between_kf
-        c1b = frames_since >= max(cfg.tracker.min_frames_between_kf, 1)
+        c1b = frames_since >= max(cfg.tracker.min_frames_between_kf, 1) and mapper_idle
         c1c = (n_close_tracked < cfg.tracker.close_tracked_th
                and n_close_untracked > cfg.tracker.close_untracked_th)
         c2 = (n_inliers < cfg.tracker.kf_ref_ratio * max(self.ref_kf_matches, 1)
               and n_inliers > 15)
-        return bool(((c1a or c1b or c1c) and c2) or (c1c and c1b))
+        want = bool(((c1a or c1b or c1c) and c2) or (c1c and c1b))
+        if want and not mapper_idle:
+            want = q.unfinished_tasks < 3
+        return want
 
     def _create_keyframe(self, feats: Features, u_r, depth, mp_feat, ts,
                          n_inliers):
@@ -677,12 +922,52 @@ class Tracker:
         self.last_kf_id = int(kf_id)
         self.ref_kf_matches = max(n_inliers, 1)
         self.stats["n_kf"] += 1
-        self._kf_wall = time.perf_counter()
         if kf_id >= 0:
+            self._kf_wall[kf_id] = time.perf_counter()
             self._n_kf_host = kf_id + 1
             if kf_id % 8 == 0:
                 self._probe_mp_pressure()
-            self._mapping_pipeline(kf_id)
+            self._queue_mapping(kf_id, lagged_loops=False)
+
+    def _create_keyframe_from_record(self, rec: "_Chunk", c: int, R, t, n_inl: int):
+        """A keyframe from frame `c` of a consumed chunk (reference
+        :1237-1264), at the consumed pose, under the host's keyframe id (no
+        read of the map's count)."""
+        cfg = self.cfg
+        _, xy, level, angle, desc, valid, u_r, depth, mp_feat = rec.outs[c]
+        kid = self._n_kf_host
+        self.map, _ = _insert_kf_and_spawn(
+            self.map, self._dev(R), self._dev(t), self._rel_ts(rec.ts[c]), xy, level,
+            desc, valid, u_r, depth, mp_feat, self.cam_params,
+            float(cfg.stereo.depth_factor * cfg.stereo.baseline),
+            cam_model=cfg.camera.model_id, n_levels=cfg.orb.n_levels, angle=angle,
+            img_w=cfg.camera.width, img_h=cfg.camera.height,
+            th_far=cfg.tracker.th_far_points, kf_id=kid)
+        self._n_kf_host = kid + 1
+        self.last_kf_frame = rec.fids[c]
+        self.last_kf_id = kid
+        self.ref_kf_matches = max(n_inl, 1)
+        self.stats["n_kf"] += 1
+        self._kf_wall[kid] = time.perf_counter()
+        if kid % 8 == 0:
+            self._probe_mp_pressure()
+        self._queue_mapping(kid, lagged_loops=True)
+
+    def _queue_mapping(self, kid: int, lagged_loops: bool):
+        """The keyframe's back end: on the mapper thread when there is one,
+        else inline. A new keyframe aborts a global BA that runs inline on
+        the mapper thread (it would hold the queue); a dedicated GBA thread
+        (async_gba) keeps running: only a newer loop, a compaction or a
+        reset aborts it (reference :1735-1742; its pipelined keyframe
+        :1259-1261 aborts that thread as well, which the port does not)."""
+        q = self._map_queue
+        if q is None:
+            self._mapping_pipeline(kid, lagged_loops=lagged_loops)
+            return
+        lc = self.loop_closer
+        if lc is not None and not lc.async_gba:
+            lc.abort_gba = True
+        q.put((self._map_epoch, kid))
 
     def _probe_mp_pressure(self):
         """Landmark-slot pressure without waiting for the card (reference
@@ -707,8 +992,10 @@ class Tracker:
         (`map_state.compact_map`) and remap every host-side id: the last
         keyframe, the loop closer's last loop keyframe and loop edges (its
         consistency state restarts), the previous frame's landmark bindings,
-        and the BoW database, rebuilt from the map. Returns False when
-        nothing was freed.
+        and the BoW database, rebuilt from the map. The mapper's queue is
+        drained first and a running GBA aborted (their ids are the old
+        map's); the pipelined chain restarts. Returns False when nothing was
+        freed.
 
         The previous frame's bindings are remapped through `mp_new`, ids of
         dropped landmarks becoming -1. The reference leaves them as they were
@@ -716,29 +1003,33 @@ class Tracker:
         `_prev_feat_mp`), so after its compaction the next frame's stage-1
         search and local-map mask read other landmarks' slots; the port does
         not carry that fault over (ROADMAP queue 3)."""
-        m = self.map
-        n_kf_b, n_mp_b = int(m.n_kf), int(m.n_mp)
-        m2, kf_new, mp_new = ms.compact_map(m)
-        n_kf_a, n_mp_a = int(m2.n_kf), int(m2.n_mp)
-        if n_kf_a >= n_kf_b and n_mp_a >= n_mp_b:
-            return False
-        kf_new_np = kf_new.cpu().numpy()
-        self.map = m2
-        self._n_kf_host = n_kf_a
-        if 0 <= self.last_kf_id < len(kf_new_np):
-            self.last_kf_id = int(kf_new_np[self.last_kf_id])
-        self._remap_prev_feat_mp(mp_new)
-        lc = self.loop_closer
-        if lc is not None:
-            if 0 <= lc.last_loop_kf < len(kf_new_np):
-                lc.last_loop_kf = int(kf_new_np[lc.last_loop_kf])
-            lc.consistent_candidate = -1
-            lc.consistency_count = 0
-            lc.remap_keyframes(kf_new_np)
-        if self.place_rec is not None:
-            self._rebuild_place_rec()
-        self.stats["n_compactions"] += 1
-        return True
+        self.wait_mapping_idle()
+        self._abort_gba_and_join()
+        with self._map_lock:
+            m = self.map
+            n_kf_b, n_mp_b = int(m.n_kf), int(m.n_mp)
+            m2, kf_new, mp_new = ms.compact_map(m)
+            n_kf_a, n_mp_a = int(m2.n_kf), int(m2.n_mp)
+            if n_kf_a >= n_kf_b and n_mp_a >= n_mp_b:
+                return False
+            kf_new_np = kf_new.cpu().numpy()
+            self.map = m2
+            self._new_map_epoch()
+            self._n_kf_host = n_kf_a
+            if 0 <= self.last_kf_id < len(kf_new_np):
+                self.last_kf_id = int(kf_new_np[self.last_kf_id])
+            self._remap_prev_feat_mp(mp_new)
+            lc = self.loop_closer
+            if lc is not None:
+                if 0 <= lc.last_loop_kf < len(kf_new_np):
+                    lc.last_loop_kf = int(kf_new_np[lc.last_loop_kf])
+                lc.consistent_candidate = -1
+                lc.consistency_count = 0
+                lc.remap_keyframes(kf_new_np)
+            if self.place_rec is not None:
+                self._rebuild_place_rec()
+            self.stats["n_compactions"] += 1
+            return True
 
     def _remap_prev_feat_mp(self, mp_new: torch.Tensor):
         prev = self._prev_feat_mp
@@ -777,13 +1068,15 @@ class Tracker:
             # stereo: depth fixes the scale (reference :655-657)
             self.loop_closer = LoopCloser(self.cfg, self.place_rec, fix_scale=True)
 
-    def _mapping_pipeline(self, kid: int):
-        """Per-keyframe mapping, synchronous (reference :1859-1927, the fused
-        branch): BoW add + cull / triangulate / fuse / keyframe culling +
-        the loop probe as one queue of device work, then local BA; then,
-        when the keyframe passes the probe gates, the probe pack is read and
-        consumed (`_consume_probe`). The probe runs whenever a loop closer
-        exists, as in the reference."""
+    def _mapping_pipeline(self, kid: int, lagged_loops: bool = False):
+        """Per-keyframe mapping (reference :1859-1927, the fused branch):
+        BoW add + cull / triangulate / fuse / keyframe culling + the loop
+        probe as one queue of device work, then local BA unless a further
+        keyframe already waits for the mapper (LocalMapping.cc:151-158);
+        then, when the keyframe passes the probe gates, the probe pack is
+        read and consumed (`_consume_probes`), or with `lagged_loops` (the
+        pipelined path) only kept, to ride the next chunk's read. The probe
+        runs whenever a loop closer exists, as in the reference."""
         cfg = self.cfg
         pr = self.place_rec
         voc = pr.voc
@@ -802,33 +1095,50 @@ class Tracker:
             prev_cand=torch.full((), lc.consistent_candidate if lc is not None else -1,
                                  dtype=torch.int32, device=dev))
         self.stats["n_mapping_steps"] += 1
-        self._run_local_ba(kid)
+        q = self._map_queue
+        if q is None or q.unfinished_tasks <= 1:
+            self._run_local_ba(kid)
         if want_probe:
-            self._consume_probe(kid, probe.cpu().numpy())
+            if lagged_loops:
+                self._probe_unfetched.append((kid, probe))
+            else:
+                self._consume_probes([(kid, probe.cpu().numpy())])
 
-    def _consume_probe(self, kid: int, pv: np.ndarray):
-        """The loop closer on a read probe pack (reference
-        `_consume_probes`): landmark pressure from the pack's n_mp slot
-        (the next frame compacts the map when it is set), then the
-        consistency machine, verification, correction and global
-        BA; after a loop, `n_loops`, `loop_latency_ms` (keyframe creation
-        to corrected map, host clock) and the pose from the corrected
-        keyframe."""
-        if pv[11] > 0:
-            self._mp_pressure = bool(pv[11] >= 0.9 * self.map.max_mp)
+    def _consume_probes(self, probe_list) -> list:
+        """The loop closer on read probe packs [(kid, 16 floats)] (reference
+        :1017-1050): landmark pressure from the pack's n_mp slot (the next
+        frame compacts the map when it is set), then the consistency
+        machine, verification, correction and the global BA (inline, or
+        started on its thread with async_gba). After a loop: `n_loops`,
+        `loop_latency_ms` (keyframe creation to corrected map, host clock),
+        the pipelined chain restarts, and off the mapper thread the pose is
+        the corrected keyframe's. Returns the rigid delta of each correction
+        (float64 host arrays), to compose onto poses still in flight."""
         lc = self.loop_closer
-        n_before = lc.n_loops
-        self.map = lc.on_probe_result(self.map, kid, pv, self.cam_params)
-        if lc.n_loops > n_before:
-            self.stats["n_loops"] += 1
-            self.stats["loop_latency_ms"] = round(
-                (time.perf_counter() - self._kf_wall) * 1e3, 1)
-            self.pose = (self.map.kf_R[kid].clone(), self.map.kf_t[kid].clone())
+        deltas = []
+        for kid, pv in probe_list:
+            if pv[11] > 0:
+                self._mp_pressure = bool(pv[11] >= 0.9 * self.map.max_mp)
+            n_before = lc.n_loops
+            self.map = lc.on_probe_result(self.map, kid, pv, self.cam_params)
+            if lc.n_loops > n_before:
+                self.stats["n_loops"] += 1
+                if kid in self._kf_wall:
+                    self.stats["loop_latency_ms"] = round(
+                        (time.perf_counter() - self._kf_wall[kid]) * 1e3, 1)
+                self._chain = None
+                if not self._in_mapper_thread:
+                    self.pose = (self.map.kf_R[kid].clone(), self.map.kf_t[kid].clone())
+                self._maybe_start_gba()
+                dR, dt = lc.last_delta
+                deltas.append((dR.cpu().numpy().astype(np.float64),
+                               dt.cpu().numpy().astype(np.float64)))
+        return deltas
 
     def _run_local_ba(self, kf_id: int):
         """Local BA over the covisibility window, its oldest members fixed
-        (reference :2197-2225), from the third keyframe on; the tracker's
-        pose becomes the keyframe's optimised one."""
+        (reference :2197-2225), from the third keyframe on; off the mapper
+        thread the tracker's pose becomes the keyframe's optimised one."""
         cfg = self.cfg
         if self._n_kf_host < 3:
             return
@@ -839,8 +1149,338 @@ class Tracker:
                              cam_model=cfg.camera.model_id,
                              n_ba_points=cfg.ba.max_points, n_iters=cfg.ba.n_iters)
         self.stats["n_local_ba"] += 1
-        # copies: the map's rows change in place at the next keyframe
-        self.pose = (self.map.kf_R[kf_id].clone(), self.map.kf_t[kf_id].clone())
+        if not self._in_mapper_thread:
+            # copies: the map's rows change in place at the next keyframe
+            self.pose = (self.map.kf_R[kf_id].clone(), self.map.kf_t[kf_id].clone())
+
+    # -- the pipelined path (reference :876-1281) -----------------------------
+    def _process_frame_pipelined(self, img, ts: float) -> dict:
+        """Buffer the frame (uploaded from pinned memory, no wait), dispatch
+        a chunk when `chunk` frames wait, then consume the chunks whose
+        packs have reached the host."""
+        if isinstance(img, torch.Tensor) and img.device.type != "cpu":
+            img_dev = img.to(self.device)
+        else:
+            img_dev = to_device(np.asarray(img), self.device)
+        if img_dev.dim() != 3 or img_dev.shape[0] != 2:
+            raise ValueError(f"expected a (2, H, W) stereo pair, got {tuple(img_dev.shape)}")
+        self._img_buf.append((img_dev, ts, self.frame_id))
+        self.frame_id += 1
+        self.stats["n_frames"] += 1
+        if len(self._img_buf) >= self.chunk:
+            self._dispatch_chunk()
+        self._finalize_impl(drain=False)
+        return {"state": self.state, "n_inliers": self.n_inliers_last, "pipelined": True}
+
+    def _chunk_args(self) -> dict:
+        cfg = self.cfg
+        args = self._track_args()
+        args.update(min_z=float(cfg.stereo.min_z), max_kp=cfg.orb.max_kp,
+                    close_depth=float(cfg.stereo.depth_factor * cfg.stereo.baseline),
+                    fisheye=bool(cfg.stereo.fisheye), sad_refine=bool(cfg.stereo.sad_refine))
+        return args
+
+    def _dispatch_chunk(self):
+        """Run the buffered frames as one chunk (reference :912-997) and
+        start the copy of their packs, with every waiting loop probe up to
+        PROBE_SLOTS, into a pinned host buffer of the chunk's own; an event
+        recorded after the copy tells when it has landed. Reads nothing
+        back: the chain and the landmark statistics stay on the card."""
+        buf, self._img_buf = self._img_buf, []
+        if not buf:
+            return
+        cfg = self.cfg
+        dev = self.device
+        with self._map_lock, self.timer.stage("pipeline_dispatch"):
+            if self._chain is None:
+                F = cfg.orb.max_kp
+                self._chain = (*(self._dev(x) for x in self.pose),
+                               *(self._dev(x) for x in self.vel),
+                               torch.full((F,), -1, dtype=torch.int32, device=dev),
+                               torch.zeros(F, device=dev))
+            imgs = [b[0] for b in buf]
+            if self._remap is not None:
+                imgs = list(self._remap(torch.stack(imgs)).unbind(0))
+            self._chain, vis, found, outs = _frame_step_chunk(
+                self.map, self._chain, imgs, float(np.float32(self.threshold.t)),
+                self.cam_params, self._fisheye_rig,
+                local_only=bool(cfg.tracker.local_map_tracking), ref_kf=self.last_kf_id,
+                **self._chunk_args())
+            self.map.mp_visible, self.map.mp_found = vis, found
+            probes = self._probe_unfetched[:self.PROBE_SLOTS]
+            self._probe_unfetched = self._probe_unfetched[self.PROBE_SLOTS:]
+            vec = torch.cat([torch.stack([o[0] for o in outs]).reshape(-1)]
+                            + [p for _, p in probes])
+            event = None
+            if dev.type == "cuda":
+                host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+                host.copy_(vec, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            else:
+                host = vec
+            self._pending.append(_Chunk([b[1] for b in buf], [b[2] for b in buf], outs,
+                                        [k for k, _ in probes], host, event))
+
+    def _finalize_impl(self, drain: bool):
+        """Consume chunks (reference :1065-1158): with `drain`, all of them
+        and every unread probe; else those whose copy has landed, plus the
+        oldest ones while more than `pipeline` frames are in flight (the
+        backpressure: the host waits for the oldest). Probes first (each
+        predates its chunk's frames); a correction's rigid delta is composed
+        in float64 onto every pack read with it, and then every chunk still
+        in flight is read too (a GBA merge that landed while a chunk was in
+        flight has its delta composed first). One threshold-controller step
+        per batch, on the median feature count; then the frames in order. A
+        loss drops everything still in flight."""
+        if not self._pending and not (drain and self._probe_unfetched):
+            return
+        with self._map_lock, self.timer.stage("pipeline_finalize"):
+            if drain:
+                recs, self._pending = self._pending, []
+            else:
+                recs = []
+                while self._pending and self._pending[0].done():
+                    recs.append(self._pending.pop(0))
+                while self._pending and \
+                        sum(len(r.ts) for r in self._pending) > max(self.pipeline, 1):
+                    recs.append(self._pending.pop(0))
+            if not recs and not (drain and self._probe_unfetched):
+                return
+            splits = [r.read() for r in recs]
+            probe_list = [p for _, ps in splits for p in ps]
+            if drain and self._probe_unfetched:
+                # probes with no chunk left to ride: read directly
+                left, self._probe_unfetched = self._probe_unfetched, []
+                probe_list += [(k, h.cpu().numpy()) for k, h in left]
+            deltas = self._consume_probes(probe_list)
+            if deltas and self._pending:
+                more, self._pending = self._pending, []
+                more_splits = [r.read() for r in more]
+                deltas += self._consume_probes([p for _, ps in more_splits for p in ps])
+                recs += more
+                splits += more_splits
+            if not recs:
+                return
+            packs = np.concatenate([pk for pk, _ in splits])
+            # one controller step per batch: its frames all saw one threshold
+            self.threshold.update(int(np.median(packs[:, 0])))
+            row = 0
+            for rec in recs:                  # GBA merges while in flight
+                for dR, dt in rec.moves:
+                    _compose_rows(packs[row:row + len(rec.ts)],
+                                  dR.cpu().numpy().astype(np.float64),
+                                  dt.cpu().numpy().astype(np.float64))
+                row += len(rec.ts)
+            for dR, dt in deltas:             # then this batch's loop corrections
+                _compose_rows(packs, dR, dt)
+            prev_pose = None
+            row = 0
+            for rec in recs:
+                for c in range(len(rec.ts)):
+                    v = packs[row + c]
+                    if not self._consume_record(rec, c, v, prev_pose):
+                        self._pending = []
+                        return
+                    prev_pose = (v[4:13].reshape(3, 3), v[13:16])
+                row += len(rec.ts)
+
+    def _consume_record(self, rec: _Chunk, c: int, v: np.ndarray, prev_pose) -> bool:
+        """Host policy for one lagged frame (reference :1160-1196). Returns
+        False on a loss: RECENTLY_LOST, the velocity reset, the chain and
+        the buffered frames dropped (counted in `frames_skipped`)."""
+        ts, fid = rec.ts[c], rec.fids[c]
+        n_inl, n_close_t, n_close_u = int(v[1]), int(v[2]), int(v[3])
+        R = v[4:13].reshape(3, 3).astype(np.float32)
+        t = v[13:16].astype(np.float32)
+        if n_inl < self.cfg.tracker.min_inliers:
+            self.stats["track_fail"] += 1
+            self.state = RECENTLY_LOST
+            self.lost_since = ts
+            self.vel = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+            self._chain = None
+            self.stats["frames_skipped"] += len(self._img_buf)
+            self._img_buf = []
+            return False
+        self.pose = (R, t)
+        if prev_pose is not None:
+            Rp, tp = prev_pose
+            Rv = R @ Rp.T
+            self.vel = (Rv.astype(np.float32), (t - Rv @ tp).astype(np.float32))
+        self.trajectory.append((ts, R, t))
+        self.n_inliers_last = n_inl
+        if self._need_new_keyframe_scalars(n_inl, n_close_t, n_close_u, fid):
+            self._create_keyframe_from_record(rec, c, R, t, n_inl)
+        return True
+
+    def _drain_pipeline(self):
+        """Dispatch the buffered frames and consume everything in flight
+        (before any synchronous logic); the chain restarts."""
+        if self._img_buf:
+            self._dispatch_chunk()
+        if self._pending or self._probe_unfetched:
+            self._finalize_impl(drain=True)
+        self._chain = None
+
+    def finish(self):
+        """Flush the pipeline and wait for the mapper's queue and a running
+        GBA (the end of a sequence, before reading the trajectory)."""
+        self._drain_pipeline()
+        self.wait_mapping_idle()
+        self.wait_gba()
+
+    # -- the mapper thread (reference :1747-1786, 1851-1857) ------------------
+    @property
+    def _in_mapper_thread(self) -> bool:
+        return threading.current_thread() is self._mapper_thread
+
+    def _record_error(self, counter: str, what: str):
+        """A thread's caught failure: counted in stats[counter], its
+        traceback kept in `self.errors` and written to stderr."""
+        self.stats[counter] += 1
+        msg = f"[tracker] {counter}: {what}\n{traceback.format_exc()}"
+        self.errors.append(msg)
+        print(msg, file=sys.stderr, flush=True)
+
+    def _mapper_loop(self):
+        """LocalMapping / LoopClosing on their own thread: one keyframe id at
+        a time from the queue, under `_map_lock`. A detached queue (None)
+        leaves the mapping inline; an exception is counted and the thread
+        goes on (reference :1770-1771)."""
+        with on_device(self.device):
+            while not self._mapper_stop:
+                q = self._map_queue
+                if q is None:
+                    time.sleep(0.05)
+                    continue
+                try:
+                    epoch, kid = q.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                try:
+                    with self._map_lock:
+                        if epoch == self._map_epoch:
+                            self._mapping_pipeline(kid, lagged_loops=self.pipeline > 1)
+                except Exception:
+                    self._record_error("mapper_errors", f"keyframe {kid}")
+                finally:
+                    q.task_done()
+
+    def wait_mapping_idle(self, timeout: float = 60.0):
+        """Block until the mapper's queue is done; raises TimeoutError
+        after `timeout` s."""
+        q = self._map_queue
+        if q is None or self._mapper_thread is None:
+            return
+        t0 = time.monotonic()
+        while q.unfinished_tasks > 0:
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"the mapper thread is still busy after {timeout} s")
+            time.sleep(0.005)
+
+    def shutdown_mapping(self):
+        """Wait for a running GBA and for the mapper's queue, then stop and
+        join the mapper thread; later keyframes are mapped inline."""
+        self.wait_gba()
+        t = self._mapper_thread
+        if t is not None:
+            self.wait_mapping_idle()
+            self._mapper_stop = True
+            t.join(timeout=60.0)
+            if t.is_alive():
+                raise RuntimeError("the mapper thread did not stop")
+            self._mapper_thread = None
+            self._map_queue = None
+
+    # -- the asynchronous global BA (reference :1789-1849) --------------------
+    def _maybe_start_gba(self):
+        """With `async_gba`, start the post-loop global BA on its own thread
+        (mpThreadGBA, LoopClosing.cc:1198), after aborting a running one (a
+        newer loop supersedes it). It optimises a snapshot of the map taken
+        now, in one-iteration chunks with its abort polled, and merges under
+        a lock acquired by polling, so an abort can never deadlock against
+        it; `_after_merge` then moves the tracker's poses with the map."""
+        lc = self.loop_closer
+        if lc is None or not lc.async_gba or lc.gba_iters <= 0:
+            return
+        self._abort_gba_and_join()
+        m0 = ms.clone_map(self.map)
+        n_kf0 = self._n_kf_host
+        abort = threading.Event()
+        cfg = self.cfg
+
+        def run():
+            with on_device(self.device):
+                try:
+                    m_gba = global_bundle_adjust_auto(
+                        m0, self.cam_params, bf=float(cfg.bf), cam_model=cfg.camera.model_id,
+                        n_iters=lc.gba_iters, chunk=1, n_ba_points=min(m0.max_mp, 4096),
+                        should_abort=abort.is_set)
+                    merged = False
+                    while not merged and not abort.is_set():
+                        if self._map_lock.acquire(timeout=0.02):
+                            try:
+                                if not abort.is_set():
+                                    k = self.last_kf_id
+                                    before = (self.map.kf_R[k], self.map.kf_t[k])
+                                    self.map = merge_gba_result(
+                                        self.map, m_gba.kf_R, m_gba.kf_t, m_gba.mp_pos,
+                                        n_kf0, self._n_kf_host, m0.mp_valid, m0.mp_first_kf)
+                                    if k >= 0:
+                                        self._after_merge(k, *before)
+                                    merged = True
+                            finally:
+                                self._map_lock.release()
+                    self.stats["n_gba_merged" if merged else "n_gba_aborted"] += 1
+                except Exception:
+                    self._record_error("gba_errors", "global BA")
+
+        self.stats["n_gba_started"] += 1
+        self._gba_abort = abort
+        self._gba_thread = threading.Thread(target=run, daemon=True)
+        self._gba_thread.start()
+
+    def _after_merge(self, k: int, R_old, t_old):
+        """A merged GBA moved the map: the tracker's pose, the pipelined
+        chain and every chunk in flight move with the last keyframe `k`
+        (its pose before the merge, R_old / t_old, and after), keeping their
+        pose relative to it, as ORB-SLAM3 keeps the last frame's pose
+        relative to its reference keyframe (Tracking::UpdateLastFrame). The
+        chain goes on, bindings and all, in the merged map; nothing is read
+        back. The reference drops its chain instead (:1825), so that the next
+        chunk starts without bindings from a pose of the world before the
+        merge; it never meets this on its pipelined path, whose keyframes
+        abort the GBA before it merges."""
+        R_new, t_new = self.map.kf_R[k], self.map.kf_t[k]
+        dR = R_old.T @ R_new
+        dt = R_old.T @ (t_new - t_old)
+        if self._chain is not None:
+            R, t = self._chain[:2]
+            self._chain = (R @ dR, R @ dt + t) + tuple(self._chain[2:])
+        if self.pose is not None:
+            R, t = (self._dev(x) for x in self.pose)
+            self.pose = (R @ dR, R @ dt + t)
+        for rec in self._pending:
+            rec.moves.append((dR, dt))
+
+    def _abort_gba_and_join(self, timeout: float = 60.0):
+        """Abort and join a running GBA; its result is discarded."""
+        t = self._gba_thread
+        if t is not None:
+            self._gba_abort.set()
+            t.join(timeout)
+            if t.is_alive():
+                raise RuntimeError("the aborted GBA thread did not stop")
+        self._gba_thread = None
+
+    def wait_gba(self, timeout: float = 300.0):
+        """Wait for a running GBA to finish and merge."""
+        t = self._gba_thread
+        if t is not None:
+            t.join(timeout)
+            if t.is_alive():
+                raise TimeoutError(f"the GBA thread is still running after {timeout} s")
+            self._gba_thread = None
 
     def trajectory_centers(self) -> np.ndarray:
         """(T, 3) camera centres of the tracked frames."""

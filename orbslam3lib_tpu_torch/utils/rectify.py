@@ -169,7 +169,7 @@ class TwoPassRemap:
 
     Built once from the (2, H, W, 2) two-pass maps: the tap indices and
     weights of both passes live on `device`. `__call__` remaps a (2, H, W)
-    image: acc = w0 * img[y0, x] + w1 * img[y0 + 1, x] at the vertical map,
+    pair, or a stack of them (..., 2, H, W): acc = w0 * img[y0, x] + w1 * img[y0 + 1, x] at the vertical map,
     then out = w0 * acc[y, x0] + w1 * acc[y, x0 + 1] at the horizontal one,
     each pass two gathers; no value goes back to the host. Out-of-image
     samples are 0 (BORDER_CONSTANT)."""
@@ -185,12 +185,17 @@ class TwoPassRemap:
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
         img = img.to(torch.float32)
+        lead = img.shape[:-3]
+
+        def taps(x, dim, i0, i1):
+            return (torch.gather(x, dim, i0.expand(lead + i0.shape)),
+                    torch.gather(x, dim, i1.expand(lead + i1.shape)))
         # addcmul: the second tap fused into the sum, as the reference's
         # compiled accumulation does (1-ulp agreement instead of 2)
-        acc = torch.addcmul(self.wy0 * torch.gather(img, -2, self.y0),
-                            self.wy1, torch.gather(img, -2, self.y1))
-        return torch.addcmul(self.wx0 * torch.gather(acc, -1, self.x0),
-                             self.wx1, torch.gather(acc, -1, self.x1))
+        a0, a1 = taps(img, -2, self.y0, self.y1)
+        acc = torch.addcmul(self.wy0 * a0, self.wy1, a1)
+        b0, b1 = taps(acc, -1, self.x0, self.x1)
+        return torch.addcmul(self.wx0 * b0, self.wx1, b1)
 
 
 def remap_bilinear(img: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:

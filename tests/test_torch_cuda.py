@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions; the slice
 with its back end, the loop leg (probe, verification, correction, global
 BA), relocalisation, the rectifying remap, the fisheye matcher, `System`
-on a raw radtan and a KB8 rig, and compaction on the card against the same
-on the CPU (marker
+on a raw radtan and a KB8 rig, compaction and the pipelined tracker on the
+card against the same on the CPU; a chunk's dispatch without a host sync;
+the mapper and GBA threads on the card (marker
 `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
@@ -364,3 +365,99 @@ def test_compaction_on_card_matches_cpu(cuda_device):
     assert torch.equal(a[1], b[1].cpu()) and torch.equal(a[2], b[2].cpu())
     for name, x in ms.to_numpy(a[0]).items():
         np.testing.assert_array_equal(ms.to_numpy(b[0])[name], x, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_pipelined_on_card_matches_cpu(cuda_device):
+    """The pipelined tracker (`pipeline=6, chunk=2`, mapping inline) on 40
+    frames of the small orbit with the back end, on the card and on the
+    CPU: the same keyframes and failures, camera centres within 1 mm, and
+    every frame in the trajectory. (It is not held to the synchronous
+    tracker: a chunk's lag and its chain's restart without bindings make it
+    another algorithm, 3.7 cm apart from the synchronous one on these
+    frames on the CPU.)"""
+    imgs, ts, rig = orbit_frames(40)
+    trackers = [Tracker(backend_config(SlamConfig, rig), "stereo", device=d,
+                        enable_loop_closing=False, pipeline=6, chunk=2)
+                for d in ("cpu", cuda_device)]
+    for img, stamp in zip(imgs, ts):
+        for tr in trackers:
+            tr.process_frame(img, float(stamp))
+    for tr in trackers:
+        tr.finish()
+    cpu, card = trackers
+    assert card.stats == cpu.stats and cpu.stats["n_kf"] >= 10
+    assert len(card.trajectory) == len(imgs)
+    np.testing.assert_allclose(card.trajectory_centers(), cpu.trajectory_centers(),
+                               rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_dispatch_chunk_reads_nothing_back(cuda_device):
+    """`_dispatch_chunk` under torch's sync debug mode "error": a chunk of
+    two frames (extraction, stereo, the two-stage search and pose LM, the
+    packs' copy into pinned memory) never waits for the card."""
+    imgs, ts, rig = orbit_frames(8)
+    tr = Tracker(backend_config(SlamConfig, rig), "stereo", device=cuda_device,
+                 enable_loop_closing=False, pipeline=6, chunk=2)
+    for img, stamp in zip(imgs[:5], ts[:5]):
+        tr.process_frame(img, float(stamp))
+    tr._drain_pipeline()
+    assert tr.state == 1
+    frames = [(torch.as_tensor(imgs[i], device=cuda_device), float(ts[i]), i) for i in (5, 6)]
+    torch.cuda.synchronize()
+    tr._img_buf = frames
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr._dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert len(tr._pending) == 1
+    tr._drain_pipeline()
+    assert len(tr.trajectory) == 7 and tr.state == 1
+
+
+@pytest.mark.cuda
+def test_mapper_and_gba_threads_on_card(cuda_device):
+    """The mapper thread and the GBA thread run on the tracker's card (their
+    current device, recorded from inside each) and are joined by
+    `shutdown_mapping`; the GBA merges into the live map on the card."""
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    imgs, ts, rig = orbit_frames(24)
+    cfg = backend_config(SlamConfig, rig)
+    cfg.mapping.async_gba = True
+    tr = Tracker(cfg, "stereo", device=cuda_device, enable_loop_closing=False,
+                 async_mapping=True)
+    seen = []
+    real_map = tr._mapping_pipeline
+
+    def mapping(kid, **kw):
+        seen.append(("mapper", torch.cuda.current_device()))
+        return real_map(kid, **kw)
+
+    tr._mapping_pipeline = mapping
+    real_gba = ttr.global_bundle_adjust_auto
+
+    def gba(*a, **kw):
+        seen.append(("gba", torch.cuda.current_device()))
+        return real_gba(*a, **kw)
+
+    ttr.global_bundle_adjust_auto = gba
+    try:
+        for img, stamp in zip(imgs, ts):
+            tr.process_frame(img, float(stamp))
+        tr.wait_mapping_idle()
+        tr.loop_closer = ttr.LoopCloser(cfg, tr.place_rec, gba_iters=3)
+        with tr._map_lock:
+            tr._maybe_start_gba()
+        mapper, gba_thread = tr._mapper_thread, tr._gba_thread
+        tr.shutdown_mapping()
+    finally:
+        ttr.global_bundle_adjust_auto = real_gba
+    idx = cuda_device.index or 0
+    assert {w for w, _ in seen} == {"mapper", "gba"}
+    assert all(d == idx for _, d in seen)
+    assert not mapper.is_alive() and not gba_thread.is_alive()
+    assert tr.stats["n_gba_merged"] == 1 and tr.stats["mapper_errors"] == 0
+    assert tr.map.kf_R.device.type == "cuda"

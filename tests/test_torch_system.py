@@ -5,7 +5,8 @@ sequence through `track_stereo`, then the TUM and KITTI trajectory files,
 whose numbers agree to 1e-5 line by line. Also: the pipeline's backpressure
 (a queue of depth 2 that drops frames while the consumer is busy) drops
 the same frames in both; the sensors and options not ported raise
-NotImplementedError; the PNG writer, the map render and the PLY export
+NotImplementedError, and the ported background mapper and asynchronous
+global BA run; the PNG writer, the map render and the PLY export
 give the same bytes as the reference's `viz` for the same map arrays."""
 import os
 
@@ -157,27 +158,49 @@ def test_unported_sensors_raise(sensor):
 
 def test_unported_options_raise(sequence):
     _, rig, _ = sequence
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys.System(small_cfg(TCfg, rig), background_mapping=True, device="cpu")
     s = tsys.System(small_cfg(TCfg, rig), device="cpu")
     for call in (lambda: s.save_atlas("a.npz"), lambda: s.load_atlas("a.npz"),
                  lambda: s.track_monocular(np.zeros((8, 8)), 0.0),
                  lambda: s.track_stereo(np.zeros((2, 8, 8)), 0.0, imu=(0, 0, 0))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    cfg = small_cfg(TCfg, rig)
-    cfg.mapping.async_gba = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys.System(cfg, device="cpu")
+
+
+def test_background_mapping_runs(systems, sequence):
+    """`System(background_mapping=True)` (the reference's mapper thread,
+    which raised before it was ported): the same frames give the
+    synchronous System's trajectory within 5 mm (which keyframes a busy
+    mapper lets through depends on timing); `shutdown` waits for the
+    mapper's queue and joins its thread."""
+    _, ts_, _, n = systems
+    frames, rig, _ = sequence
+    s = tsys.System(small_cfg(TCfg, rig), background_mapping=True, enable_loop_closing=False,
+                    device="cpu")
+    thread = s.tracker._mapper_thread
+    assert thread is not None and thread.is_alive()
+    for img_pair, _, stamp in frames:
+        s.track_stereo(img_pair, stamp)
+    s.shutdown()
+    assert not thread.is_alive() and s.tracker._mapper_thread is None
+    assert s.get_stats()["mapper_errors"] == 0 and s.get_tracking_state() == OK
+    got, want = s.tracker.trajectory_centers(), ts_.tracker.trajectory_centers()
+    assert len(got) == len(want) == n
+    assert np.abs(got - want).max() < 0.005
 
 
 def test_entry_points_default_to_the_card(sequence):
-    """Without a card, the default device raises instead of falling back."""
+    """Without a card, the default device raises instead of falling back:
+    `System`, with the mapper thread too, and the pipelined `Tracker`."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     _, rig, _ = sequence
+    from orbslam3lib_tpu_torch.tracking.tracker import Tracker
     with pytest.raises(RuntimeError, match="CUDA"):
         tsys.System(small_cfg(TCfg, rig))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsys.System(small_cfg(TCfg, rig), background_mapping=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Tracker(small_cfg(TCfg, rig), "stereo", pipeline=16, chunk=4, async_mapping=True)
 
 
 def test_viz_bytes_agree(systems, tmp_path):
@@ -214,13 +237,11 @@ def _unported_cfg(case):
         cfg.stereo.fisheye = True
     elif case == "fixed_ba_window":
         cfg.mapping.covis_ba_window = False
-    elif case == "async_gba":
-        cfg.mapping.async_gba = True
     return cfg
 
 
 @pytest.mark.parametrize("case", ["mono", "imu", "radtan_unrectified", "fisheye_pinhole",
-                                  "fixed_ba_window", "async_gba"])
+                                  "fixed_ba_window"])
 def test_tracker_unported_configurations_raise(case):
     """Every configuration the port does not have raises, naming its ROADMAP
     item, before anything runs."""
@@ -228,3 +249,20 @@ def test_tracker_unported_configurations_raise(case):
     sensor = "mono" if case == "mono" else "stereo"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Tracker(_unported_cfg(case), sensor, device="cpu")
+
+
+def test_async_gba_configuration_runs(sequence):
+    """`cfg.mapping.async_gba` (which raised before the asynchronous global
+    BA was ported) builds a System whose loop closer leaves the global BA to
+    the tracker's GBA thread; frames track and `shutdown` returns with no
+    thread left."""
+    frames, rig, _ = sequence
+    cfg = small_cfg(TCfg, rig)
+    cfg.mapping.async_gba = True
+    s = tsys.System(cfg, background_mapping=True, device="cpu")
+    for img_pair, _, stamp in frames[:6]:
+        s.track_stereo(img_pair, stamp)
+    assert s.tracker.loop_closer is not None and s.tracker.loop_closer.async_gba
+    s.shutdown()
+    assert s.tracker._gba_thread is None and s.tracker._mapper_thread is None
+    assert s.get_tracking_state() == OK and s.get_stats()["gba_errors"] == 0

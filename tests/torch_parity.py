@@ -185,6 +185,20 @@ def reference_single_device_gba():
         yield
 
 
+class InlineFetches:
+    """Stands in for the JAX tracker's background fetch pool (`_fetch_pool`,
+    tracker.py:595): each fetch runs when it is submitted, so a chunk's
+    packs are on the host by the next finalize, as on the port's CPU path,
+    and which chunks a batch consumes no longer depends on a thread's
+    timing. Install with `tracker._fetch_pool = InlineFetches()`."""
+
+    def submit(self, fn, *args):
+        import concurrent.futures
+        fut = concurrent.futures.Future()
+        fut.set_result(fn(*args))
+        return fut
+
+
 RING_CAM = np.array([300.0, 300.0, 320.0, 200.0], np.float32)
 
 

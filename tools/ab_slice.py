@@ -2,7 +2,7 @@
 turns: per-frame time and kernel launches of each.
 
     python3 tools/ab_slice.py --tree parent=DIR --tree change=. \
-        [--order parent,change,change,parent] [--frames 400]
+        [--order parent,change,change,parent] [--frames 400] [--no-profile]
 
 Each --tree names a checkout of the repo (for an earlier commit, unpack
 `git archive <commit>` into a directory that .gitignore lists). The tool
@@ -15,7 +15,9 @@ without its jolt and kidnap). Per run it prints one JSON line: the host
 time per frame (synchronised per frame; median and p90 over the frames
 outside the profiled window), and, from torch.profiler over PROFILED
 frames starting at PROFILE_AT, cudaLaunchKernel calls and device events
-per frame; then keyframes, loops and failures.
+per frame; then keyframes, loops and failures. `--no-profile` leaves the
+profiler out (no launch counts; every frame timed), so that a run takes
+seconds instead of minutes and many alternating pairs fit in one call.
 """
 import argparse
 import json
@@ -29,7 +31,7 @@ import numpy as np
 PROFILE_AT, PROFILED = 100, 60
 
 
-def worker(root: str, frames_file: str, label: str) -> int:
+def worker(root: str, frames_file: str, label: str, profiled: bool) -> int:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -47,29 +49,31 @@ def worker(root: str, frames_file: str, label: str) -> int:
     tr = Tracker(orbit_tracking_config(StereoRig()), "stereo", device=dev)
     frame_ms, prof = [], None
     for i in range(len(imgs)):
-        if i == PROFILE_AT:
+        if profiled and i == PROFILE_AT:
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             prof.__enter__()
         t0 = time.perf_counter()
         tr.process_frame(imgs[i], float(ts[i]))
         torch.cuda.synchronize()
-        if not PROFILE_AT <= i < PROFILE_AT + PROFILED:
+        if not (profiled and PROFILE_AT <= i < PROFILE_AT + PROFILED):
             frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if i == PROFILE_AT + PROFILED - 1:
+        if profiled and i == PROFILE_AT + PROFILED - 1:
             prof.__exit__(None, None, None)
-    ka = prof.key_averages()
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-    dev_events = sum(e.count for e in ka
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = dev_events = None
+    if profiled:
+        ka = prof.key_averages()
+        launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel") / PROFILED
+        dev_events = sum(e.count for e in ka
+                         if e.device_type == torch.autograd.DeviceType.CUDA) / PROFILED
     st = tr.stats
     print(json.dumps({
         "label": label, "root": root, "build_s": build_s, "frames": len(imgs),
         "median_ms": float(np.median(frame_ms)),
         "p90_ms": float(np.percentile(frame_ms, 90)),
         "mean_ms": float(np.mean(frame_ms)),
-        "launches_per_frame": launches / PROFILED,
-        "device_events_per_frame": dev_events / PROFILED,
-        "profiled_frames": [PROFILE_AT, PROFILE_AT + PROFILED],
+        "launches_per_frame": launches,
+        "device_events_per_frame": dev_events,
+        "profiled_frames": [PROFILE_AT, PROFILE_AT + PROFILED] if profiled else None,
         "n_kf": st["n_kf"], "n_loops": st["n_loops"],
         "track_fail": st["track_fail"]}), flush=True)
     return 0
@@ -81,10 +85,12 @@ def main() -> int:
                     help="LABEL=DIR, a checkout of the repo")
     ap.add_argument("--order", help="comma-separated labels (default: each once)")
     ap.add_argument("--frames", type=int, default=400)
+    ap.add_argument("--no-profile", action="store_true",
+                    help="no torch.profiler window (no launch counts)")
     ap.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(*args.worker)
+        return worker(*args.worker, profiled=not args.no_profile)
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -107,8 +113,8 @@ def main() -> int:
     try:
         for label in order:
             r = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", "x=.",
-                                "--worker", trees[label], frames_file, label],
-                               cwd=here)
+                                "--worker", trees[label], frames_file, label]
+                               + ["--no-profile"] * args.no_profile, cwd=here)
             rc = rc or r.returncode
     finally:
         os.remove(frames_file)

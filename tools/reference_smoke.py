@@ -6,6 +6,7 @@ machine).
 
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase pinhole
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase radtan --frames 400
+    JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase production
 
 Phases (frames rendered by the port's numpy renderer, the same frames the
 smoke feeds the port; bench.py's configuration: 640x400, 512 keypoints, 8
@@ -18,10 +19,30 @@ levels, 2x2 pose iterations, loop closing on, `pipeline=0`):
   kb8      phase F: two-camera Kannala-Brandt stereo, `cfg.stereo.fisheye`;
   compact  phase C: the first 150 pinhole frames with 24 KF / 2048 MP
            slots, 1024 local-BA points and dense keyframing
-           (tests/test_compaction.py::test_long_sequence_with_recycling).
+           (tests/test_compaction.py::test_long_sequence_with_recycling);
+  production  phase P: bench.py's `full_slam` protocol (bench.py:329-440)
+           on the first 376 pinhole frames: `Tracker(cfg, "stereo",
+           pipeline=16, chunk=4, async_mapping=True)` with
+           `cfg.mapping.async_gba`; a populate of 240 frames with the
+           mapper queue detached (mapping inline), a keyframe every 2nd
+           frame and culling off, `finish()` and `_compact_map()`; then 16
+           warm frames and 3 windows of 40, each ended by `_drain_pipeline()`.
+           The compile-only warm-ups of bench.py (`_warm_cold_graphs`) are
+           left out: they change no state. The reference's chunk reads run
+           when submitted (its fetch pool replaced by tests/torch_parity's
+           `InlineFetches`), so
+           it consumes each chunk right after dispatching it, as the port
+           does on the card, where a chunk's device work ends within the
+           host's time to enqueue the next. Left to its fetch pool on the
+           CPU, whose chunks take seconds, the reference lets chunks pile up
+           and decides keyframes on frames tracked against a map that lags
+           by up to 16 frames: 152 populate keyframes instead of the 121
+           both packages make when each chunk is consumed at once.
 Prints one JSON line per phase: trajectory and keyframe ATE (m, SE(3)
 aligned to the analytic orbit), keyframes, loops and their pairs, the loop
-frame, failures and (compact) compactions.
+frame, failures and (compact) compactions; production also the windows,
+the populate's keyframes and live landmarks, and the async GBAs started
+and merged.
 """
 from __future__ import annotations
 
@@ -33,11 +54,15 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
 KB8_K = (0.02, -0.01, 0.003, 0.0)
-DEFAULT_FRAMES = {"pinhole": 400, "radtan": 400, "kb8": 180, "compact": 150}
+DEFAULT_FRAMES = {"pinhole": 400, "radtan": 400, "kb8": 180, "compact": 150,
+                  "production": 376}
+# bench.py's full_slam protocol (bench.py:39-42)
+N_POPULATE, N_WARM, N_WINDOWS, N_WINDOW = 240, 16, 3, 40
 JOLT_FRAME = 370
 JOLT_PRIOR = ((0.0, 0.2, 0.0), (0.3, 0.0, 0.0))
 KIDNAP_BACK = 180
@@ -92,6 +117,8 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=None)
     args = ap.parse_args()
     n = args.frames or DEFAULT_FRAMES[args.phase]
+    if args.phase == "production":
+        return production()
 
     import jax.numpy as jnp
     from orbslam3lib_tpu.config import CameraConfig, SlamConfig
@@ -161,6 +188,103 @@ def main() -> int:
            "compactions": n_compact[0]}
     if kidnap:
         out["kidnap_states"] = results[n:]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def production() -> int:
+    """Phase P: bench.py's full_slam protocol on the JAX reference."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_parity import InlineFetches
+    from orbslam3lib_tpu.config import SlamConfig
+    from orbslam3lib_tpu.mapping import map_ba as jmb
+    from orbslam3lib_tpu.tracking import tracker as jtr
+    from orbslam3lib_tpu_torch.evaluation import ate_rmse
+    from orbslam3lib_tpu_torch.io.synthetic import (StereoRig, orbit_pose_at,
+                                                    render_orbit_sequence)
+
+    n = N_POPULATE + N_WARM + N_WINDOWS * N_WINDOW
+    t0 = time.time()
+    imgs, ts, rig = render_orbit_sequence(n, StereoRig())
+    render_s = time.time() - t0
+    # the GBA thread imports merge_gba_result when it merges: count them
+    merges = [0]
+    real_merge = jmb.merge_gba_result
+
+    def counting_merge(*a, **k):
+        merges[0] += 1
+        return real_merge(*a, **k)
+
+    jmb.merge_gba_result = counting_merge
+    cfg = bench_config(SlamConfig, rig)
+    cfg.mapping.async_gba = True
+    tr = jtr.Tracker(cfg, "stereo", enable_loop_closing=True, pipeline=16, chunk=4,
+                     async_mapping=True)
+    tr._fetch_pool = InlineFetches()
+    starts = [0]
+    real_start = tr._maybe_start_gba
+
+    def counting_start():
+        before = tr._gba_thread
+        real_start()
+        starts[0] += int(tr._gba_thread is not None and tr._gba_thread is not before)
+
+    tr._maybe_start_gba = counting_start
+    t1 = time.time()
+    kf_ratio = cfg.tracker.kf_ref_ratio
+    cfg.tracker.kf_ref_ratio = 10.0
+    cfg.tracker.min_frames_between_kf = 2
+    cfg.tracker.max_frames_between_kf = 2
+    cfg.mapping.kf_culling = False
+    queue_save, tr._map_queue = tr._map_queue, None
+    for i in range(N_POPULATE):
+        tr.process_frame(imgs[i], float(ts[i]))
+    tr.finish()
+    tr._map_queue = queue_save
+    populate = {"n_kf": int(tr.map.n_kf), "live_mp": int(np.asarray(tr.map.mp_valid).sum()),
+                "fails": tr.stats["track_fail"], "s": round(time.time() - t1, 1)}
+    cfg.tracker.kf_ref_ratio = kf_ratio
+    cfg.tracker.min_frames_between_kf = 3
+    cfg.tracker.max_frames_between_kf = 15
+    cfg.mapping.kf_culling = True
+    tr._compact_map()
+    i = N_POPULATE
+    for _ in range(N_WARM):
+        tr.process_frame(imgs[i], float(ts[i]))
+        i += 1
+    tr._drain_pipeline()
+    windows = []
+    for _ in range(N_WINDOWS):
+        fails = tr.stats["track_fail"]
+        t2 = time.perf_counter()
+        for _ in range(N_WINDOW):
+            tr.process_frame(imgs[i], float(ts[i]))
+            i += 1
+        tr._drain_pipeline()
+        windows.append({"ms_per_frame": round((time.perf_counter() - t2) / N_WINDOW * 1e3, 1),
+                        "fails": tr.stats["track_fail"] - fails,
+                        "n_kf": int(tr.map.n_kf), "n_loops": tr.stats["n_loops"]})
+    tr.finish()
+    run_s = time.time() - t1
+    traj = tr.trajectory_centers()
+    t_traj = np.asarray([f[0] for f in tr.trajectory])
+    ate = ate_rmse(traj, orbit_pose_at(t_traj, period=24.0, radius=0.5)[1])
+    m = tr.map
+    v = np.asarray(m.kf_valid)
+    R, t = np.asarray(m.kf_R)[v], np.asarray(m.kf_t)[v]
+    kts = np.asarray(m.kf_ts)[v].astype(np.float64) + tr._ts_origin
+    kf_ate = ate_rmse(-np.einsum("kji,kj->ki", R, t),
+                      orbit_pose_at(kts, period=24.0, radius=0.5)[1])
+    tr.shutdown_mapping()
+    out = {"phase": "production", "frames": n, "render_s": round(render_s, 1),
+           "run_s": round(run_s, 1), "populate": populate, "windows": windows,
+           "ate_m": ate, "kf_ate_m": kf_ate, "n_kf_alive": int(v.sum()),
+           "n_kf_created": tr.stats["n_kf"], "n_loops": tr.stats["n_loops"],
+           "loop_edges": [list(map(int, e)) for e in tr.loop_closer.loop_edges],
+           "track_fail": tr.stats["track_fail"], "state": int(tr.state),
+           "trajectory_frames": len(traj), "gba_started": starts[0],
+           "gba_merges": merges[0],
+           "loop_latency_ms": tr.stats.get("loop_latency_ms")}
     print(json.dumps(out), flush=True)
     return 0
 
