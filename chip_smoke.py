@@ -89,7 +89,27 @@ Phases, each fatal on failure:
      error and every thread joined, kernel 1 once per extracted frame and
      kernel 2 at least once, the trajectory's ATE within the reference's
      bound (REF_PRODUCTION, tools/reference_smoke.py --phase production).
-  Phases 4-7 each reset the launch counters just before their frames and
+  8. M, multi-map: phase 3's pinhole frames with frames MULTIMAP_GREY
+     flat grey (their stamps kept), through one synchronous
+     `System(cfg, "stereo")` at bench.py's configuration with loop closing
+     on: map A (frames 0-179, more than 10 keyframes) is lost on the grey
+     frames, and the 5 s timeout archives it in the Atlas; map B
+     initialises on frame 260; when the orbit comes back to A's start
+     (frame ~345, 360 frames a turn) the map merger welds A into B through
+     the Sim(3) it verified (the cross match is kernel 2). `save_atlas`
+     right after the spawn (two maps) and after the merge; each file loads
+     into a fresh System on the card. Checks against the reference's run
+     of the same frames (REF_MULTIMAP, tools/reference_smoke.py --phase
+     multimap): one map spawned, one merge, one map at the end, the merge
+     frame and the merged keyframe count within +-2 of the reference's, the
+     merged map's keyframe ATE (A's keyframes in B's world) and each map's
+     trajectory ATE within x 1.5 + 5 mm, kernel 1 once per frame, kernel 2
+     inside the merge, and every loaded array `torch.equal` to the saved
+     one with the same `map_info`. Printed: the merge's stages in device ms
+     (CUDA events: archive query, cross match, Sim(3), transform +
+     merge_into, welding BA, BoW rebuild) and the peak device memory with
+     two maps.
+  Phases 4-8 each reset the launch counters just before their frames and
   read them just after; each kernel must launch on each of them (counts in
   the kernels line, `launches_by_path`). The sequences render in three
   processes started before the card is used.
@@ -167,6 +187,18 @@ N_PRODUCTION = N_POPULATE + N_WARM + N_WINDOWS * N_WINDOW
 # Bounds: x 1.5 + 5 mm (the keyframes' own, as the reference's keyframes
 # are not worse than its trajectory).
 REF_PRODUCTION = {"ate_m": 0.081811, "kf_ate_m": 0.051783}
+
+# Phase M: the grey frames (first, last) of phase 3's orbit. The JAX
+# reference on the CPU on these frames (tools/reference_smoke.py --phase
+# multimap): map A of 14 keyframes archived at frame 256, map B initialised
+# at frame 260, merged at frame 351 (B's 8 keyframes + A's 14 = 22), 24
+# keyframes at the end, no loop; ATE 0.050335 m on the merged map's
+# keyframes, 0.030220 m on A's frames, 0.022286 m on B's. Bounds: x 1.5 +
+# 5 mm; the merge frame and keyframe count +-2 (the card's scatter order
+# can flip a keyframe decision).
+MULTIMAP_GREY = (180, 259)
+REF_MULTIMAP = {"spawn_frame": 256, "merge_frame": 351, "n_kf_merged": 22,
+                "kf_ate_merged_m": 0.050335, "ate_a_m": 0.030220, "ate_b_m": 0.022286}
 
 FAST_SHAPES = [(400, 640), (320, 512), (240, 384), (196, 314), (160, 256),
                (127, 203), (101, 161), (80, 128)]
@@ -780,6 +812,184 @@ def phase_production(dev, imgs, ts, rig, sync_median_ms):
     return checks, launches
 
 
+def phase_multimap(dev, imgs, ts, rig):
+    """Phase M: a lost map archived in the Atlas, merged back on a revisit,
+    and the atlas saved and loaded on the card."""
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_tracking_config
+    from orbslam3lib_tpu_torch.mapping import loop_closing as lc_mod
+    from orbslam3lib_tpu_torch.mapping import sim3 as sim3_mod
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    from orbslam3lib_tpu_torch.models.atlas import Atlas
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
+    from orbslam3lib_tpu_torch.system import System
+    from orbslam3lib_tpu_torch.tracking.tracker import Tracker
+    g0, g1 = MULTIMAP_GREY
+    grey = np.full_like(imgs[0], 128)
+    frames = [(grey if g0 <= i <= g1 else imgs[i], float(ts[i])) for i in range(N_FRAMES)]
+    sys_ = System(orbit_tracking_config(rig), "stereo", device=dev)
+    tr = sys_.tracker
+
+    # the merge's stages, timed inside MapMerger.on_keyframe (the Sim(3)
+    # functions serve loop verification too); the BoW rebuild follows a merge
+    inside = [False]
+    patched = [(lc_mod.MapMerger, "best_hits", "archive query"),
+               (lc_mod, "match_kf_landmarks_cross", "cross match"),
+               (sim3_mod, "sim3_ransac", "sim3_ransac"),
+               (sim3_mod, "optimize_sim3", "optimize_sim3"),
+               (Atlas, "merge", "transform + merge_into"),
+               (lc_mod.MapMerger, "_welding_ba", "welding BA"),
+               (Tracker, "_rebuild_place_rec", "BoW rebuild")]
+    timers = {name: StepTimer(getattr(o, n)) for o, n, name in patched}
+
+    def gated(name):
+        t = timers[name]
+        return lambda *a, **k: t(*a, **k) if inside[0] else t.fn(*a, **k)
+
+    on_kf = lc_mod.MapMerger.on_keyframe
+    merge_launches = []
+
+    def on_keyframe(self, *a, **k):
+        inside[0] = True
+        n0 = cuda_matcher.launches
+        try:
+            done = on_kf(self, *a, **k)
+        finally:
+            inside[0] = False
+        if done:
+            merge_launches.append(cuda_matcher.launches - n0)
+        return done
+
+    ev = {"spawn": None, "merge": None}
+    real_merge = timers["transform + merge_into"]
+
+    def atlas_merge(self, src_idx, *a):
+        ev["merge"] = {"n_kf_b_before": int(self.current_map.n_kf),
+                       "n_kf_a_valid": int(self.maps[src_idx].kf_valid.sum())}
+        return real_merge(self, src_idx, *a)
+
+    rebuild = timers["BoW rebuild"]
+    wrappers = {"transform + merge_into": atlas_merge,
+                "BoW rebuild": lambda *a, **k: rebuild(*a, **k)}
+    saved = [(o, n, getattr(o, n)) for o, n, _ in patched] + \
+        [(lc_mod.MapMerger, "on_keyframe", on_kf)]
+    try:
+        for o, n, name in patched:
+            setattr(o, n, wrappers.get(name) or gated(name))
+        lc_mod.MapMerger.on_keyframe = on_keyframe
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_fast.reset_count()
+        cuda_matcher.reset_count()
+        states, poses, frame_ms, snaps, peak = [], [], [], {}, {}
+        origin_a = None
+        for i, (img, stamp) in enumerate(frames):
+            if ev["spawn"] is None:
+                origin_a = tr._ts_origin
+            t0 = time.perf_counter()
+            n_traj = len(tr.trajectory)
+            res = sys_.track_stereo(img, stamp)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(int(res["state"]))
+            poses.append(tr.trajectory[-1] if len(tr.trajectory) > n_traj else None)
+            st = tr.stats
+            for key, done in (("spawn", st["n_new_maps"] >= 1),
+                              ("merge", st["n_map_merges"] >= 1)):
+                if done and key not in snaps:
+                    peak[key] = torch.cuda.max_memory_allocated()
+                    if key == "spawn":
+                        ev["spawn"] = {"frame": i, "n_kf_a": int(tr.atlas.maps[0].n_kf)}
+                    else:
+                        ev["merge"].update(frame=i, n_kf_after=int(tr.map.n_kf))
+                    # right after the event: the file, and the arrays it must hold
+                    path = os.path.join(tempfile.mkdtemp(), f"atlas_{key}.npz")
+                    sys_.save_atlas(path)
+                    snaps[key] = (path, [{k: v.copy() for k, v in ms.to_numpy(m).items()}
+                                         for m in tr.atlas.maps], sys_.map_info(), i)
+        launches = {"fast_scores_nms": cuda_fast.launches,
+                    "knn_match_fused": cuda_matcher.launches}
+        torch.cuda.synchronize()
+    finally:
+        for o, n, f in saved:
+            setattr(o, n, f)
+    st = sys_.get_stats()
+    info_end = sys_.map_info()
+    sys_.shutdown()
+    map_bytes = sum(getattr(tr.map, k).numel() * getattr(tr.map, k).element_size()
+                    for k in ms.FIELDS)
+    ok_ev = ev["spawn"] is not None and ev["merge"] is not None and "frame" in ev["merge"]
+    kf_ate_m = ate_a = ate_b = float("inf")
+    if ok_ev:
+        # the reference's numbers come from the same function
+        from orbslam3lib_tpu_torch.evaluation import multimap_report
+        nb = ev["merge"]["n_kf_b_before"]
+        origins = [(0, tr._ts_origin), (nb, origin_a),
+                   (nb + ev["merge"]["n_kf_a_valid"], tr._ts_origin)]
+        rep = multimap_report(
+            tuple(x.cpu().numpy() for x in (tr.map.kf_valid, tr.map.kf_R, tr.map.kf_t,
+                                            tr.map.kf_ts)),
+            origins, ev["spawn"], ev["merge"], poses, states)
+        kf_ate_m, ate_a, ate_b = (rep[k] if rep[k] is not None else float("inf")
+                                  for k in ("kf_ate_merged_m", "ate_a_m", "ate_b_m"))
+    log(f"[smoke] M (multi-map, frames {g0}-{g1} grey): {len(frames)} frames, median "
+        f"{np.median(frame_ms):.2f} ms, p90 {np.percentile(frame_ms, 90):.2f} ms per "
+        f"frame; spawn {ev['spawn']}, merge {ev['merge']}; KFs {st['n_kf']} made, map "
+        f"{info_end}; track_fail {st['track_fail']}, loops {st['n_loops']}; merged-map "
+        f"keyframe ATE {kf_ate_m:.6f} m, map A's frames {ate_a:.6f} m, B's {ate_b:.6f} m "
+        f"(reference {REF_MULTIMAP}); launches {launches}, kernel 2 in the merge "
+        f"{merge_launches}")
+    per = {n: t.ms() for n, t in timers.items()}
+    sim3_ms = [a + b for a, b in zip(per["sim3_ransac"], per["optimize_sim3"])]
+    print("M merge stages, device ms (CUDA events): "
+          + "; ".join(stage_line(n, per[n]) for n in ("archive query", "cross match"))
+          + "; " + stage_line("Sim(3) (RANSAC + OptimizeSim3)", sim3_ms) + "; "
+          + "; ".join(stage_line(n, per[n]) for n in ("transform + merge_into",
+                                                       "welding BA", "BoW rebuild")))
+    if ok_ev:
+        print(f"M device memory: peak {peak['spawn'] / 2**20:.1f} MiB allocated up to "
+              f"the spawn (one map), {peak['merge'] / 2**20:.1f} MiB up to the merge (two "
+              f"maps); one map's tensors {map_bytes / 2**20:.1f} MiB")
+
+    # the saved files in a fresh System on the card
+    loads_ok = {}
+    for key, (path, maps, info, frame) in snaps.items():
+        fresh = System(orbit_tracking_config(rig), "stereo", device=dev)
+        fresh.load_atlas(path)
+        got = fresh.tracker.atlas.maps
+        loads_ok[key] = (len(got) == len(maps) and fresh.map_info() == info and all(
+            torch.equal(getattr(a, k), torch.from_numpy(b[k]).to(dev))
+            for a, b in zip(got, maps) for k in ms.FIELDS)
+            and all(m.kf_R.device == dev for m in got))
+        log(f"[smoke] M: atlas saved at frame {frame} ({len(maps)} maps, {info}), "
+            f"{os.path.getsize(path) / 2**20:.1f} MiB; loaded on the card equal: "
+            f"{loads_ok[key]}")
+        fresh.shutdown()
+        os.remove(path)
+        os.rmdir(os.path.dirname(path))
+    ref = REF_MULTIMAP
+    checks = {
+        "M: one map archived, one merge, one map at the end":
+            st["n_new_maps"] == 1 and st["n_map_merges"] == 1 and info_end["n_maps"] == 1,
+        "M: map A above 10 keyframes": ok_ev and ev["spawn"]["n_kf_a"] > 10,
+        "M: merge frame within 2 of the reference's":
+            ok_ev and abs(ev["merge"]["frame"] - ref["merge_frame"]) <= 2,
+        "M: merged keyframe count within 2 of the reference's":
+            ok_ev and abs(ev["merge"]["n_kf_after"] - ref["n_kf_merged"]) <= 2,
+        "M: merged map's keyframe ATE within the reference's bound":
+            ate_within(kf_ate_m, ref["kf_ate_merged_m"]),
+        "M: map A's trajectory ATE within the reference's bound":
+            ate_within(ate_a, ref["ate_a_m"]),
+        "M: map B's trajectory ATE within the reference's bound":
+            ate_within(ate_b, ref["ate_b_m"]),
+        "M: kernel 1 once per frame": launches["fast_scores_nms"] == len(frames),
+        "M: kernel 2 inside the merge": len(merge_launches) == 1 and merge_launches[0] >= 1,
+        "M: the atlas saved after the spawn loads equal": loads_ok.get("spawn", False),
+        "M: the atlas saved after the merge loads equal": loads_ok.get("merge", False),
+        "M: state OK at the end": states[-1] == 1,
+    }
+    return checks, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("[smoke] CUDA is not available: this smoke test needs one CUDA card")
@@ -1005,6 +1215,8 @@ def run(jobs, t_start) -> int:
     c, by_path["compaction"] = phase_compact(dev, imgs[:N_COMPACT], ts[:N_COMPACT], rig)
     checks.update(c)
     c, by_path["production"] = phase_production(dev, imgs, ts, rig, med)
+    checks.update(c)
+    c, by_path["M"] = phase_multimap(dev, imgs, ts, rig)
     checks.update(c)
     for path, counts in by_path.items():
         for name, n in counts.items():

@@ -39,6 +39,45 @@ def ate_rmse(est_centers: np.ndarray, gt_centers: np.ndarray,
     return float(np.sqrt(((aligned - gt_centers) ** 2).sum(axis=1).mean()))
 
 
+def multimap_report(maps_kf, origins, spawn, merge, trajectory, states):
+    """chip_smoke.py's phase M numbers (a map lost and merged back on the
+    bench orbit: 24 s a turn, radius 0.5 m) from host arrays, for either
+    package's run.
+
+    maps_kf: the final current map's (kf_valid, kf_R, kf_t, kf_ts) numpy
+    arrays; origins: [(first slot, ts origin)] in slot order (B's slots
+    before the merge, A's appended block, B's later keyframes); spawn /
+    merge: dicts of the frame and counts at those events; trajectory:
+    [(ts, R, t) or None] per frame; states: per-frame state codes (1 = OK)."""
+    from .io.synthetic import orbit_pose_at
+    v, R, t, kts = maps_kf
+    slots = np.arange(len(v))
+    origin = np.zeros(len(v))
+    for first, org in origins:
+        origin[slots >= first] = org
+    sel = np.flatnonzero(v)
+    est = -np.einsum("kji,kj->ki", R[sel], t[sel])
+    gt = orbit_pose_at(kts[sel].astype(np.float64) + origin[sel], period=24.0,
+                       radius=0.5)[1]
+    out = {"kf_ate_merged_m": ate_rmse(est, gt) if len(sel) >= 3 else None,
+           "n_kf_alive_end": int(len(sel))}
+
+    def seg_ate(lo, hi):
+        idx = [i for i in range(lo, min(hi, len(trajectory)))
+               if states[i] == 1 and trajectory[i] is not None]
+        if len(idx) < 3:
+            return None
+        c = np.stack([-trajectory[i][1].T @ trajectory[i][2] for i in idx])
+        g = orbit_pose_at(np.asarray([trajectory[i][0] for i in idx]), period=24.0,
+                          radius=0.5)[1]
+        return ate_rmse(c, g)
+
+    s_frame = spawn["frame"] if spawn else len(trajectory)
+    out["ate_a_m"] = seg_ate(0, s_frame)
+    out["ate_b_m"] = seg_ate(s_frame, len(trajectory)) if spawn else None
+    return out
+
+
 def rpe_rmse(est_centers: np.ndarray, gt_centers: np.ndarray, delta: int = 1) -> float:
     """Relative pose (translation) error RMSE over frame pairs delta apart."""
     de = est_centers[delta:] - est_centers[:-delta]

@@ -16,9 +16,18 @@ and re-anchors the landmarks, followed by a global BA.
 Functions take keyframe ids as Python ints or 0-d tensors; none reads a
 value back to the host. With `cfg.mapping.async_gba` the global BA does
 not run inside `on_probe_result`: the tracker starts it on a thread of its
-own. Not ported here (each waits for its own part of the port): `_probe`'s
-branch for the native inverted-file database, `MapMerger`,
-`match_kf_landmarks_cross` and `merge_world_sim3` (the Atlas).
+own.
+
+`MapMerger` is the merge branch of NewDetectCommonRegions (LoopClosing.cc
+:324) and MergeLocal (:1215) across the Atlas's maps: every keyframe of
+the current map queries the frozen BoW databases of the archived maps;
+three consistent hits, the cross-map match (`match_kf_landmarks_cross`,
+kernel 2 on the card), Sim3 RANSAC and OptimizeSim3 verify it, and the
+archived map is welded into the current one (`models/atlas.Atlas.merge`
+through `merge_world_sim3`), followed by a BA over the seam. Only the
+visual branch is ported: the inertial one waits for the IMU (ROADMAP
+queue 1). Not ported: `_probe`'s branch for the native inverted-file
+database.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import torch
 
 from ..device import to_device
 from ..models import map_state as ms
-from ..models.vocabulary import _descend, bow_vector, l1_scores
+from ..models.vocabulary import _descend, bow_from_descriptors, bow_vector, l1_scores
 from ..ops.fast import topk_stable
 from ..ops.masks import is_finite_match, leq_int, penalize, step01
 from ..ops.matcher import hamming_matrix
@@ -38,7 +47,7 @@ from ..utils import cameras, lie
 from . import pose_graph
 from . import sim3 as sim3_mod
 from .local_mapping import _index, mapping_step, observed_mp_mask, top_covisible
-from .map_ba import global_bundle_adjust
+from .map_ba import global_bundle_adjust, map_window_ba
 
 
 def _kf(m: ms.MapState, k) -> torch.Tensor:
@@ -53,21 +62,42 @@ def match_kf_landmarks(m: ms.MapState, kf_a, kf_b):
 
     Returns (p_a_cam (F, 3), p_b_cam (F, 3), uv_a, uv_b, valid, idx)
     aligned to kf_a's feature slots; idx is the matched kf_b slot or -1."""
-    a, b = _kf(m, kf_a), _kf(m, kf_b)
-    F, P = m.n_feat, m.max_mp
-    mp_row_a, mp_row_b = ms.row(m.kf_mp, a), ms.row(m.kf_mp, b)
-    has_a = ms.row(m.kf_feat_valid, a) & (mp_row_a >= 0)
-    has_b = ms.row(m.kf_feat_valid, b) & (mp_row_b >= 0)
-    idx, ok = match_descriptors_ratio(ms.row(m.kf_desc, a), has_a,
-                                      ms.row(m.kf_desc, b), has_b, th=75.0, ratio=0.9)
+    return _match_landmarks(m, kf_a, m, kf_b)
+
+
+def match_kf_landmarks_cross(ma: ms.MapState, kf_a, mb: ms.MapState, kf_b):
+    """`match_kf_landmarks` across two maps: keyframe kf_a of `ma` against
+    keyframe kf_b of `mb` (the merge branch's geometric input,
+    LoopClosing.cc:324+). Returns (p_a_cam, p_b_cam, uv_a, uv_b, valid)."""
+    return _match_landmarks(ma, kf_a, mb, kf_b)[:5]
+
+
+def _match_landmarks(ma: ms.MapState, kf_a, mb: ms.MapState, kf_b):
+    a, b = _kf(ma, kf_a), _kf(mb, kf_b)
+    F = ma.n_feat
+    mp_row_a, mp_row_b = ms.row(ma.kf_mp, a), ms.row(mb.kf_mp, b)
+    has_a = ms.row(ma.kf_feat_valid, a) & (mp_row_a >= 0)
+    has_b = ms.row(mb.kf_feat_valid, b) & (mp_row_b >= 0)
+    idx, ok = match_descriptors_ratio(ms.row(ma.kf_desc, a), has_a,
+                                      ms.row(mb.kf_desc, b), has_b, th=75.0, ratio=0.9)
     idx_c = torch.clamp(idx, 0, F - 1).long()
-    mp_a = torch.clamp(mp_row_a, 0, P - 1).long()
-    mp_b = torch.clamp(mp_row_b[idx_c], 0, P - 1).long()
-    valid = ok & m.mp_valid[mp_a] & m.mp_valid[mp_b]
-    p_a = lie.se3_apply(ms.row(m.kf_R, a), ms.row(m.kf_t, a), m.mp_pos[mp_a])
-    p_b = lie.se3_apply(ms.row(m.kf_R, b), ms.row(m.kf_t, b), m.mp_pos[mp_b])
-    return (p_a, p_b, ms.row(m.kf_xy, a), ms.row(m.kf_xy, b)[idx_c], valid,
+    mp_a = torch.clamp(mp_row_a, 0, ma.max_mp - 1).long()
+    mp_b = torch.clamp(mp_row_b[idx_c], 0, mb.max_mp - 1).long()
+    valid = ok & ma.mp_valid[mp_a] & mb.mp_valid[mp_b]
+    p_a = lie.se3_apply(ms.row(ma.kf_R, a), ms.row(ma.kf_t, a), ma.mp_pos[mp_a])
+    p_b = lie.se3_apply(ms.row(mb.kf_R, b), ms.row(mb.kf_t, b), mb.mp_pos[mp_b])
+    return (p_a, p_b, ms.row(ma.kf_xy, a), ms.row(mb.kf_xy, b)[idx_c], valid,
             torch.where(valid, idx, -1))
+
+
+def merge_world_sim3(R_cur, t_cur, R12, t12, s12, R_old, t_old):
+    """The world-frame Sim3 (current map's world <- old map's world) from a
+    camera-frame one S12 (old keyframe's camera -> current keyframe's):
+    S_w = T_cw_cur^-1 o S12 o T_cw_old."""
+    one = torch.ones((), dtype=torch.float32, device=R_cur.device)
+    Ri, ti, si = lie.sim3_inverse(R_cur, t_cur, one)
+    Rm, tm, sm = lie.sim3_compose(R12, t12, s12, R_old, t_old, one)
+    return lie.sim3_compose(Ri, ti, si, Rm, tm, sm)
 
 
 def _sim3_project_match(p_in_tgt, src_ok, src_desc, src_min_dist, src_max_dist,
@@ -541,3 +571,168 @@ class LoopCloser:
         self.last_delta = (oRc.T @ m.kf_R[kf_cur], oRc.T @ (m.kf_t[kf_cur] - oTc))
         return m
 
+
+class MapMerger:
+    """Cross-map place recognition, Sim3 verification and the Atlas merge
+    (the visual branch of the reference's MapMerger, loop_closing.py:240).
+
+    Each archived map keeps its frozen BoW database (`archive`); every new
+    keyframe of the current map queries all of them (`on_keyframe`). The
+    best hit of every archive is computed on the device and read in one
+    host copy per keyframe (the reference reads each archive's id and score
+    apart). A hit scoring over `SCORE_TH`, on the same archive as the
+    previous one and within 2 keyframes of its candidate, counts towards
+    `consistency_needed`; then >= `MIN_MATCHES` cross matches, >=
+    `MIN_INLIERS` Sim3 RANSAC inliers and as many after OptimizeSim3, and a
+    scale in (0.5, 2.0) accept the merge. A merge whose old candidate
+    keyframe would not fit in the current map's keyframe slots is not made
+    (the archive stays). The RANSAC draws come from `mapping/sim3.sim3_ransac`'s
+    sampler (tests inject the reference's)."""
+
+    WELD_HALF = 3        # keyframes on each side of the weld seam
+    SCORE_TH = 0.015     # the reference's gates (loop_closing.py:240)
+    MIN_MATCHES = 20
+    MIN_INLIERS = 20
+
+    def __init__(self, cfg, consistency_needed: int = 3):
+        self.cfg = cfg
+        self.consistency_needed = consistency_needed
+        self.archives: list = []      # [{"map_idx": int, "db": PlaceRecognition}]
+        self.consistent = (-1, -1)    # (archive position, candidate keyframe)
+        self.count = 0
+        self.n_merges = 0
+        # the last merge: {"kf_cur", "kf_old", "src_idx"}
+        self.last_merge = None
+
+    @property
+    def inertial(self) -> bool:
+        return False
+
+    @inertial.setter
+    def inertial(self, value: bool):
+        if value:
+            raise NotImplementedError(
+                "the inertial merge (MergeLocal2, MergeInertialBA) is not ported "
+                "(ROADMAP queue 1: IMU)")
+
+    def archive(self, map_idx: int, db) -> None:
+        """Freeze the BoW database of a map being archived (a new map is
+        spawned); nothing writes into it afterwards."""
+        if db is not None:
+            self.archives.append({"map_idx": map_idx, "db": db})
+
+    def best_hits(self, m: ms.MapState, kf_id: int) -> np.ndarray:
+        """(n_archives, 2) host array of every archive's best keyframe id and
+        its score for keyframe `kf_id` of `m`: one query vector, one read."""
+        dev = m.kf_R.device
+        k = torch.full((), kf_id, dtype=torch.int64, device=dev)
+        voc = self.archives[0]["db"].voc
+        q = bow_from_descriptors(voc, ms.row(m.kf_desc, k), ms.row(m.kf_feat_valid, k))
+        hits = []
+        for arc in self.archives:
+            db = arc["db"]
+            s = l1_scores(db.bow_db, q)
+            s = torch.where(db.active, s, torch.full_like(s, -1.0))
+            top_s, top_i = topk_stable(s, 1)
+            hits.append(torch.cat([top_i.to(torch.float32), top_s]))
+        return torch.stack(hits).cpu().numpy()
+
+    def on_keyframe(self, atlas, kf_id: int, cam_params) -> bool:
+        """Query the archived maps with the current map's keyframe `kf_id`;
+        on a verified hit, merge that map into the current one and run the
+        welding BA. Returns True after a merge (the caller rebuilds its live
+        BoW database)."""
+        if not self.archives:
+            return False
+        m = atlas.current_map
+        best = (-1, -1, 0.0)  # (archive position, candidate keyframe, score)
+        for pos, (cand, score) in enumerate(self.best_hits(m, kf_id)):
+            if cand >= 0 and score > best[2]:
+                best = (pos, int(cand), float(score))
+        pos, cand, score = best
+        if pos < 0 or score <= self.SCORE_TH:
+            self.count = 0
+            return False
+        # temporal consistency: consecutive hits on one archive, nearby keyframes
+        if self.consistent[0] == pos and abs(cand - self.consistent[1]) <= 2:
+            self.count += 1
+        else:
+            self.count = 1
+        self.consistent = (pos, cand)
+        if self.count < self.consistency_needed:
+            return False
+
+        arc = self.archives[pos]
+        old = atlas.maps[arc["map_idx"]]
+        p_a, p_b, uv_a, uv_b, valid = match_kf_landmarks_cross(m, kf_id, old, cand)
+        if int(valid.sum()) < self.MIN_MATCHES:
+            return False
+        R12, t12, s12, inl, n_inl = sim3_mod.sim3_ransac(
+            p_a, p_b, uv_a, uv_b, valid, cam_params)
+        if int(n_inl) < self.MIN_INLIERS:
+            return False
+        R12, t12, s12, inl, n_inl = sim3_mod.optimize_sim3(
+            R12, t12, s12, p_a, p_b, uv_a, uv_b, inl & valid, cam_params)
+        if int(n_inl) < self.MIN_INLIERS:
+            return False
+        if not 0.5 < float(s12) < 2.0:         # the visual merge's scale gate
+            return False
+
+        Rw, tw, sw = merge_world_sim3(m.kf_R[kf_id], m.kf_t[kf_id], R12, t12, s12,
+                                      old.kf_R[cand], old.kf_t[cand])
+        src_idx = arc["map_idx"]
+        n_dst_before = int(m.n_kf)
+        # where the candidate lands after merge_into's compacting append
+        rank = np.cumsum(old.kf_valid.cpu().numpy()) - 1
+        cand_new = n_dst_before + int(rank[cand])
+        if cand_new >= m.max_kf:
+            # merge_into would drop the candidate: the weld would lose its
+            # anchor on the archived side
+            return False
+        atlas.merge(src_idx, Rw, tw, sw)
+        self._welding_ba(atlas, kf_id, cand_new, cam_params)
+        self.last_merge = {"kf_cur": kf_id, "kf_old": cand_new, "src_idx": src_idx}
+        # the archive is merged; later archives' map indices shift down
+        self.archives.pop(pos)
+        for a in self.archives:
+            if a["map_idx"] > src_idx:
+                a["map_idx"] -= 1
+        self.count = 0
+        self.consistent = (-1, -1)
+        self.n_merges += 1
+        return True
+
+    def _welding_ba(self, atlas, kf_cur: int, kf_old: int, cam_params) -> None:
+        """BA over the weld (MergeLocal's local BA, Optimizer.cc:3532): the
+        current keyframe's 3 predecessors and the old candidate with 3 on
+        each side, the current keyframe and the old candidate held fixed
+        (both carry the verified alignment).
+
+        The reference holds only the current keyframe fixed
+        (loop_closing.py:390). With no seam fusion the two sides share no
+        landmark, so its archived side has no anchor: a free rigid motion
+        that f32 rounding drives, moving those keyframes and their
+        landmarks against the rest of the archived map (on the CPU, in
+        tests/test_torch_multimap_slam.py's run, the two packages' 4
+        archived keyframes of the weld ended 8.3 mm apart, the same up to
+        one rigid motion to 0.4 um). ORB-SLAM3's MergeLocal holds the merged map's side
+        fixed; the port anchors it at the old candidate."""
+        m = atlas.current_map
+        n_kf = int(m.n_kf)
+        assert kf_cur < n_kf and kf_old < n_kf
+        w = self.WELD_HALF
+        sel = sorted(set(range(max(0, kf_cur - w), min(kf_cur + 1, n_kf)))
+                     | set(range(max(0, kf_old - w), min(kf_old + w + 1, n_kf))))
+        if len(sel) < 3:
+            return
+        C = 2 * (2 * w + 1)
+        ids = np.full(C, -1, np.int32)
+        fixed = np.zeros(C, bool)
+        ids[:len(sel)] = sel
+        fixed[:len(sel)] = [k in (kf_cur, kf_old) for k in sel]
+        cfg = self.cfg
+        dev = m.kf_R.device
+        atlas.current_map = map_window_ba(
+            m, to_device(ids, dev), to_device(fixed, dev), cam_params, float(cfg.bf),
+            cam_model=cfg.camera.model_id, n_ba_points=min(cfg.ba.max_points, m.max_mp),
+            n_iters=cfg.ba.n_iters)

@@ -19,9 +19,13 @@ a thread of its own); `shutdown` waits for their work and joins every
 thread. The tracker changes `cfg` on a raw rig (see `Tracker`), so each
 System takes its own `SlamConfig`.
 
+The tracker's maps live in an Atlas: a lost map is archived and merged back
+on a revisit. `save_atlas` / `load_atlas` write and read it as the
+reference's npz file (`models/serialization.py`), so a file written by
+either package loads in the other.
+
 Not ported, each raising NotImplementedError with its ROADMAP item: the
-mono, RGB-D and inertial sensors, and `save_atlas` / `load_atlas`
-(serialization).
+mono, RGB-D and inertial sensors.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 from .config import SlamConfig
 from .evaluation import save_trajectory_kitti, save_trajectory_tum
 from .device import on_device, to_host
+from .models.serialization import load_atlas, save_atlas
 from .tracking.tracker import LOST, RECENTLY_LOST, Tracker
 from .utils.timing import Verbose
 
@@ -143,13 +148,13 @@ class System:
         return self.tracker.state in (RECENTLY_LOST, LOST)
 
     def map_info(self) -> dict:
-        """The live map's keyframe slots in use and landmarks. The port holds
-        one map (no Atlas yet): `n_maps` is 1 and `n_new_maps` counts the
-        maps given up and dropped after a loss."""
-        with self._lock:
+        """The current map's keyframe slots in use and landmarks, and the
+        number of maps in the Atlas (read under the map lock: the mapper
+        thread inserts keyframes and merges maps under it)."""
+        with self._lock, self.tracker._map_lock:
             m = self.tracker.map
-            return {"n_kf": int(m.n_kf), "n_mp": int(m.n_mp), "n_maps": 1,
-                    "n_new_maps": self.tracker.stats["n_new_maps"]}
+            return {"n_kf": int(m.n_kf), "n_mp": int(m.n_mp),
+                    "n_maps": self.tracker.atlas.count_maps()}
 
     # -- lifecycle --------------------------------------------------------------
     def wait_idle(self, timeout: float = 30.0):
@@ -194,9 +199,19 @@ class System:
         from . import viz
         viz.export_ply(path, self.tracker.map, trajectory=self.tracker.trajectory)
 
+    # -- checkpoint / resume (System.cc:146-150, disabled in ORB-SLAM3's
+    #    release; the reference's system.py:203-209) ---------------------------
     def save_atlas(self, path: str):
-        _unported("save_atlas (ROADMAP queue 1, item 7: serialization)")
+        """Every map of the Atlas to an npz file (the reference's keys),
+        written under the map lock, so the file holds the Atlas between two
+        of the mapper thread's keyframes, never in the middle of one."""
+        with self._lock, self.tracker._map_lock:
+            save_atlas(self.tracker.atlas, path)
 
     def load_atlas(self, path: str):
-        _unported("load_atlas (ROADMAP queue 1, item 7: serialization)")
+        """Continue from the maps of an npz atlas file, on the tracker's
+        device (`Tracker.load_atlas`: the loaded maps can merge with the
+        run's new map)."""
+        with self._lock:
+            self.tracker.load_atlas(load_atlas(path, device=self.tracker.device))
 

@@ -65,13 +65,31 @@ visibility twice.
 
 A frame that misses its inliers twice counts a failure, enters
 RECENTLY_LOST and tries BoW relocalisation against up to 3 candidate
-keyframes (kernel 2 matches it to each); after 5 s lost the map is dropped
-and tracking starts over (`_handle_loss`).
+keyframes (kernel 2 matches it to each); after 5 s lost, or at a gap of
+over 1 s in the stamps, the map is given up (`_new_map`).
+
+The Atlas (reference :522, :1637-1658, :1961-1990): the tracker's maps live
+in `self.atlas` and `self.map` is its current one. A map given up with more
+than 10 keyframes is archived (`_spawn_new_map`): its live BoW database goes
+frozen to the map merger and a new map starts; a smaller one is reset. At
+the end of every keyframe's back end the merger queries the archives
+(`_detect_merge`, `mapping/loop_closing.MapMerger`); a verified hit welds
+the archived map into the current one. Three places where threads, the
+pipelined chain and compaction meet the Atlas, each held by a test in
+tests/test_torch_map_merge.py:
+- the mapper thread runs the merge under `_map_lock`, and a spawn takes the
+  same lock and starts a new map epoch, so keyframe ids of the archived map
+  still queued are skipped and nothing writes into the archived database;
+- the pipelined chain and the chunks in flight are kept through a merge
+  (the merge moves neither the current map's world nor its landmark slots
+  nor the tracker's last keyframe: see `_detect_merge`);
+- a compaction touches the current map alone, and the merger's archives
+  name their maps by Atlas index, which only a merge changes (the merger
+  counts the later archives down then), so they stay right after either.
 
 What this slice leaves out, each raising `NotImplementedError` that names
-its ROADMAP item where a configuration asks for it: the Atlas (a lost map
-of more than 10 keyframes is dropped, not archived, and no map merging),
-mono, IMU (so no inertial dead reckoning while lost) and the fixed
+its ROADMAP item where a configuration asks for it: mono, IMU (so no
+inertial dead reckoning while lost and no inertial merge) and the fixed
 local-BA window.
 """
 from __future__ import annotations
@@ -90,11 +108,12 @@ import torch
 from ..config import CameraConfig, SlamConfig
 from ..device import get_device, on_device, to_device, to_host
 from ..mapping import local_mapping as lm_ops
-from ..mapping.loop_closing import LoopCloser, mapper_step_fused
+from ..mapping.loop_closing import LoopCloser, MapMerger, mapper_step_fused
 from ..mapping.map_ba import inv_sigma2 as _inv_sigma2
 from ..mapping.map_ba import (global_bundle_adjust_auto, map_window_ba as _local_ba,
                               merge_gba_result)
 from ..models import map_state as ms
+from ..models.atlas import Atlas
 from ..models.vocabulary import (DEFAULT_VOCAB_PATH, bow_from_descriptors,
                                  load_vocabulary, train_vocabulary)
 from ..ops.extractor import Features, ThresholdController, extract_orb_stereo
@@ -464,8 +483,8 @@ class Tracker:
                 torch.as_tensor(np.asarray(x, np.float32), device=self.device)
                 for x in (cam2.params, R_lr, t_lr))
         mc = cfg.map
-        self.map = ms.empty_map(mc.max_kf, mc.max_mp, cfg.orb.max_kp,
-                                device=self.device)
+        # every map of the run; `self.map` is the current one (reference :522)
+        self.atlas = Atlas(mc.max_kf, mc.max_mp, cfg.orb.max_kp, device=self.device)
         self.threshold = ThresholdController(
             target=cfg.orb.target_features, band=cfg.orb.threshold_band,
             t0=cfg.orb.fast_threshold)
@@ -484,7 +503,7 @@ class Tracker:
         self.trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
         self.stats = {"n_kf": 0, "n_frames": 0, "track_fail": 0,
                       "ref_kf_fallbacks": 0, "n_reloc": 0, "n_loops": 0,
-                      "n_resets": 0, "n_new_maps": 0,
+                      "n_resets": 0, "n_new_maps": 0, "n_map_merges": 0,
                       "n_mapping_steps": 0, "n_local_ba": 0, "n_compactions": 0,
                       "mapper_errors": 0, "n_gba_started": 0, "n_gba_merged": 0,
                       "n_gba_aborted": 0, "gba_errors": 0, "frames_skipped": 0}
@@ -494,6 +513,7 @@ class Tracker:
         self.place_rec = None         # BoW keyframe database (lazy)
         self.enable_loop_closing = enable_loop_closing
         self.loop_closer = None       # made with the database
+        self.map_merger = None        # made with the loop closer
         self._mp_pressure = False     # landmark capacity nearly used
         self._mp_pressure_probe = None  # (n_mp copy, its event), every 8th keyframe
         self._compact_backoff = 0     # earliest frame id of the next compaction
@@ -526,6 +546,14 @@ class Tracker:
             self._map_queue = queue.Queue()
             self._mapper_thread = threading.Thread(target=self._mapper_loop, daemon=True)
             self._mapper_thread.start()
+
+    @property
+    def map(self) -> ms.MapState:
+        return self.atlas.current_map
+
+    @map.setter
+    def map(self, m: ms.MapState):
+        self.atlas.current_map = m
 
     def _setup_rectification(self):
         """Settings.cc:485 precomputeRectificationMaps (reference :486-516):
@@ -666,6 +694,10 @@ class Tracker:
                    max(50, round(0.5 * cfg.orb.target_features)))
         if n_feat < gate:
             return {"state": self.state, "n_inliers": 0}
+        if self._n_kf_host > 0:
+            # a loaded atlas: its current map is archived and tracking
+            # starts a map of its own (`load_atlas`)
+            self._spawn_new_map()
         R, t = self._eye_pose()
         mp_feat0 = torch.full((self.map.max_mp,), -1, dtype=torch.int32,
                               device=self.device)
@@ -775,10 +807,11 @@ class Tracker:
         with >= 50 inliers sets the pose, resets the velocity and counts
         `n_reloc`. Otherwise the next frames keep tracking from the last
         pose. Lost for more than 5 s, the map is given up (reference
-        :1600-1605): `_new_map`, also for a map of 10 keyframes or fewer,
+        :1600-1605, `_new_map`): a map of more than 10 keyframes is archived
+        in the Atlas and a new one started; a smaller one is reset, also
         where the reference only resets the tracking state and keeps the
-        stale map for the next initialisation; ORB-SLAM3 resets the active
-        map there."""
+        stale map for the next initialisation (ORB-SLAM3 resets the active
+        map there)."""
         cfg = self.cfg
         self.stats["track_fail"] += 1
         self._prev_feat_mp = None
@@ -812,47 +845,94 @@ class Tracker:
         return {"state": self.state, "n_inliers": 0}
 
     def _new_map(self):
-        """CreateMapInAtlas for a map of more than 10 keyframes, counted in
-        `n_new_maps`: without the Atlas the old map is dropped, not archived.
-        A smaller map is reset (ResetActiveMap)."""
+        """The map is given up (a loss timeout or a gap in the stamps): one of
+        more than 10 keyframes is archived (`_spawn_new_map`), a smaller one
+        reset (ResetActiveMap)."""
         if self._n_kf_host > 10:
-            self.stats["n_new_maps"] += 1
-            self._clear_map()
+            self._spawn_new_map()
         else:
             self._reset_active_map()
 
-    def _reset_active_map(self):
-        """ResetActiveMap: an empty map and NOT_INITIALIZED."""
-        self.stats["n_resets"] += 1
-        self._clear_map()
-
-    def _clear_map(self):
-        """An empty map, an empty keyframe database, NOT_INITIALIZED. A
-        running GBA is aborted (its snapshot is of the old map); the chunks
-        in flight, the buffered frames, the unread probes and the keyframes
-        still queued for the mapper belong to the old map and are dropped."""
+    def _spawn_new_map(self):
+        """CreateMapInAtlas (Tracking.cc:2720, reference :1637-1658): the
+        current map stays in the Atlas and its live BoW database goes to the
+        map merger, frozen, for a later merge; a new empty map becomes
+        current, counted in `n_new_maps`."""
         with self._map_lock:
             self._abort_gba_and_join()
             self._new_map_epoch()
+            if self.map_merger is not None and self.place_rec is not None:
+                self.map_merger.archive(self.atlas.current, self.place_rec)
+            self.atlas.create_new_map()
+            self.stats["n_new_maps"] += 1
+            self._start_over()
+
+    def _reset_active_map(self):
+        """ResetActiveMap: the current map emptied, NOT_INITIALIZED."""
+        with self._map_lock:
+            self._abort_gba_and_join()
+            self._new_map_epoch()
+            self.stats["n_resets"] += 1
             mc = self.cfg.map
             self.map = ms.empty_map(mc.max_kf, mc.max_mp, self.cfg.orb.max_kp,
                                     device=self.device)
+            self._start_over()
+
+    def _start_over(self):
+        """A fresh keyframe database and loop closer for the (empty) current
+        map, and NOT_INITIALIZED. The caller has aborted a running GBA (its
+        snapshot is of the old map) and started a new map epoch: the chunks
+        in flight, the buffered frames, the unread probes and the keyframes
+        still queued for the mapper belong to the old map and are dropped."""
+        if self.place_rec is not None:
+            self.place_rec = make_place_recognition(self.place_rec.voc, self.cfg.map.max_kf)
+            if self.loop_closer is not None:
+                n_loops = self.loop_closer.n_loops
+                self.loop_closer = LoopCloser(self.cfg, self.place_rec, fix_scale=True)
+                self.loop_closer.n_loops = n_loops
+        self.state = NOT_INITIALIZED
+        self.pose = None
+        self.lost_since = None
+        self._n_kf_host = 0
+        self.last_kf_id = -1
+        self.last_kf_frame = -999
+        self.ref_kf_matches = 0
+        self._ts_origin = None
+        self._prev_feat_mp = None
+        self._prev_feat_angle = None
+
+    def load_atlas(self, atlas: Atlas):
+        """Continue from a loaded Atlas (`System.load_atlas`). The pipeline
+        is flushed and the threads' work waited for; then the tracker starts
+        over on the loaded maps: NOT_INITIALIZED, the live BoW database
+        rebuilt from the loaded current map, and the map merger's archives
+        rebuilt, one frozen database per other loaded map. The next
+        initialisation archives the loaded current map too and starts a map
+        of its own, as ORB-SLAM3's System creates a new map after loading an
+        atlas; a revisit then merges the loaded maps in.
+
+        Named exception: the reference's `System.load_atlas` swaps the Atlas
+        and nothing else (its system.py:207-209), so its live database, its
+        merger's archives and its tracking state still describe the maps it
+        had, and its next initialisation inserts a keyframe at the identity
+        pose into the loaded map's world (ROADMAP queue 3)."""
+        if atlas.device != self.device:
+            raise ValueError(f"the atlas is on {atlas.device}, the tracker on {self.device}")
+        self.finish()
+        with self._map_lock:
+            self._abort_gba_and_join()
+            self._new_map_epoch()
+            self.atlas = atlas
+            self._start_over()
+            self._ensure_place_rec(None)
             if self.place_rec is not None:
-                self.place_rec = make_place_recognition(self.place_rec.voc, mc.max_kf)
-                if self.loop_closer is not None:
-                    n_loops = self.loop_closer.n_loops
-                    self.loop_closer = LoopCloser(self.cfg, self.place_rec, fix_scale=True)
-                    self.loop_closer.n_loops = n_loops
-            self.state = NOT_INITIALIZED
-            self.pose = None
-            self.lost_since = None
-            self._n_kf_host = 0
-            self.last_kf_id = -1
-            self.last_kf_frame = -999
-            self.ref_kf_matches = 0
-            self._ts_origin = None
-            self._prev_feat_mp = None
-            self._prev_feat_angle = None
+                self._rebuild_place_rec()
+            if self.map_merger is not None:
+                self.map_merger = MapMerger(self.cfg)
+                for i, m in enumerate(atlas.maps):
+                    if i != atlas.current and bool(m.kf_valid.any()):
+                        self.map_merger.archive(i, self._bow_database(m))
+            self._n_kf_host = int(self.map.n_kf)
 
     def _new_map_epoch(self):
         """The map's ids change meaning (a reset or a compaction): drop what
@@ -1038,27 +1118,35 @@ class Tracker:
             self._prev_feat_mp = torch.where(
                 prev >= 0, mp_new[torch.clamp(prev, 0, P - 1).long()], -1).to(torch.int32)
 
-    def _rebuild_place_rec(self):
-        """The BoW database rebuilt from the map's valid keyframes (after a
-        compaction re-indexed the slots)."""
+    def _bow_database(self, m: ms.MapState):
+        """A BoW database of the valid keyframes of map `m`."""
         db = make_place_recognition(self.place_rec.voc, self.cfg.map.max_kf)
-        for k in np.flatnonzero(self.map.kf_valid.cpu().numpy()):
-            db.add(int(k), self.map.kf_desc[int(k)], self.map.kf_feat_valid[int(k)])
-        self.place_rec = db
+        for k in np.flatnonzero(m.kf_valid.cpu().numpy()):
+            db.add(int(k), m.kf_desc[int(k)], m.kf_feat_valid[int(k)])
+        return db
+
+    def _rebuild_place_rec(self):
+        """The live BoW database rebuilt from the current map (after a
+        compaction re-indexed the slots, a merge added keyframes, or a
+        load; reference :701-710)."""
+        self.place_rec = self._bow_database(self.map)
         if self.loop_closer is not None:
-            self.loop_closer.pr = db
+            self.loop_closer.pr = self.place_rec
 
     # -- the per-keyframe back end ------------------------------------------
     def _ensure_place_rec(self, desc_bits):
         """Load the vocabulary (cfg.map.vocabulary_path, else the shipped
         one) and make the keyframe database; without a vocabulary file,
         train a small one from the first frame's descriptors, as the
-        reference does (tracker.py:714-737)."""
+        reference does (tracker.py:714-737); with no descriptors given
+        (`load_atlas`) there is then no database yet."""
         if self.place_rec is not None:
             return
         path = self.cfg.map.vocabulary_path or DEFAULT_VOCAB_PATH
         if os.path.exists(path):
             voc = load_vocabulary(path, device=self.device)
+        elif desc_bits is None:
+            return
         else:
             d = desc_bits.cpu().numpy()
             extra = np.random.default_rng(0).integers(0, 2, size=(2048, 256)).astype(np.int8)
@@ -1067,6 +1155,8 @@ class Tracker:
         if self.enable_loop_closing:
             # stereo: depth fixes the scale (reference :655-657)
             self.loop_closer = LoopCloser(self.cfg, self.place_rec, fix_scale=True)
+            if self.map_merger is None:
+                self.map_merger = MapMerger(self.cfg)
 
     def _mapping_pipeline(self, kid: int, lagged_loops: bool = False):
         """Per-keyframe mapping (reference :1859-1927, the fused branch):
@@ -1103,6 +1193,33 @@ class Tracker:
                 self._probe_unfetched.append((kid, probe))
             else:
                 self._consume_probes([(kid, probe.cpu().numpy())])
+        mm = self.map_merger
+        if mm is not None and mm.archives:
+            self._detect_merge(kid)
+
+    def _detect_merge(self, kid: int):
+        """Merge detection on keyframe `kid` (reference :1961-1990): the map
+        merger queries the archived maps and may weld one into the current
+        map. After a merge: a running GBA is aborted (its snapshot predates
+        the merge), `n_map_merges` counts it, the live BoW database is
+        rebuilt from the merged map and the host's keyframe count re-read;
+        off the mapper thread the pose becomes the keyframe's.
+
+        The pipelined chain and the chunks in flight are kept as they are:
+        the merge leaves the current map's world and its landmark slots as
+        they were and appends the archived keyframes after the last one, and
+        the welding BA holds `kid` fixed and moves only its 3 predecessors
+        and the archived map's keyframes, so the tracker's last keyframe (kid
+        or a later one) and the chain's bindings keep their values. Keyframe
+        ids queued for the mapper stay valid for the same reason."""
+        if not self.map_merger.on_keyframe(self.atlas, kid, self.cam_params):
+            return
+        self._abort_gba_and_join()
+        self.stats["n_map_merges"] += 1
+        self._n_kf_host = int(self.map.n_kf)
+        self._rebuild_place_rec()
+        if not self._in_mapper_thread:
+            self.pose = (self.map.kf_R[kid].clone(), self.map.kf_t[kid].clone())
 
     def _consume_probes(self, probe_list) -> list:
         """The loop closer on read probe packs [(kid, 16 floats)] (reference

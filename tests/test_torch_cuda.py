@@ -3,7 +3,8 @@ with its back end, the loop leg (probe, verification, correction, global
 BA), relocalisation, the rectifying remap, the fisheye matcher, `System`
 on a raw radtan and a KB8 rig, compaction and the pipelined tracker on the
 card against the same on the CPU; a chunk's dispatch without a host sync;
-the mapper and GBA threads on the card (marker
+the mapper and GBA threads on the card; the cross-map match, the map merge
+and an atlas round trip on the card (marker
 `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
@@ -461,3 +462,91 @@ def test_mapper_and_gba_threads_on_card(cuda_device):
     assert not mapper.is_alive() and not gba_thread.is_alive()
     assert tr.stats["n_gba_merged"] == 1 and tr.stats["mapper_errors"] == 0
     assert tr.map.kf_R.device.type == "cuda"
+
+
+def _merge_atlas_on(dev):
+    """tests/test_torch_map_merge.py's ring maps in an Atlas on `dev`: map A
+    archived with its BoW database, map B current."""
+    from orbslam3lib_tpu_torch.mapping import loop_closing as lc
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    from orbslam3lib_tpu_torch.models import vocabulary as vb
+    from orbslam3lib_tpu_torch.models.atlas import Atlas
+    from orbslam3lib_tpu_torch.tracking.reloc import PlaceRecognition
+    from torch_parity import merge_ring_maps
+    a, b, _, _, descs = merge_ring_maps()
+    voc = vb.train_vocabulary(descs, k=4, depth=3).to(dev)
+    at = Atlas(32, 1024, 160, device=dev)
+    at.maps = [ms.from_numpy(a, device=dev), ms.from_numpy(b, device=dev)]
+    at.bad, at.current = [False, False], 1
+    db = PlaceRecognition(voc, 32)
+    for i in range(int(at.maps[0].n_kf)):
+        db.add(i, at.maps[0].kf_desc[i], at.maps[0].kf_feat_valid[i])
+    cfg = SlamConfig()
+    cfg.camera.fx = cfg.camera.fy = 300.0
+    cfg.camera.cx, cfg.camera.cy = 320.0, 200.0
+    merger = lc.MapMerger(cfg, consistency_needed=1)
+    merger.archive(0, db)
+    return at, merger
+
+
+@pytest.mark.cuda
+def test_cross_match_on_card_matches_cpu(cuda_device):
+    """`match_kf_landmarks_cross` on the ring maps: kernel 2 on the card
+    against its plain version on the CPU; indices and masks equal, the
+    camera-frame points within 1e-5 m."""
+    from orbslam3lib_tpu_torch.mapping import loop_closing as lc
+    out = {}
+    for dev in ("cpu", cuda_device):
+        at, _ = _merge_atlas_on(dev)
+        before = cuda_matcher.launches
+        res = lc.match_kf_landmarks_cross(at.maps[1], 3, at.maps[0], 0)
+        out[str(dev)] = ([x.cpu() for x in res], cuda_matcher.launches - before)
+    (c, _), (g, n_launch) = out["cpu"], out[str(cuda_device)]
+    assert n_launch == 1
+    assert torch.equal(g[4], c[4]) and int(c[4].sum()) > 40
+    assert torch.equal(g[2], c[2]) and torch.equal(g[3][c[4]], c[3][c[4]])
+    for k in (0, 1):
+        np.testing.assert_allclose(g[k][c[4]].numpy(), c[k][c[4]].numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_map_merge_on_card_matches_cpu(cuda_device):
+    """`MapMerger.on_keyframe` and `Atlas.merge` on the card against the
+    CPU on the same RANSAC draws: the same decision, the merged map's
+    integer and bool fields equal, poses and landmarks within 1e-3 (Sim3
+    RANSAC, OptimizeSim3 and the welding BA in f32, summed in another
+    order); kernel 2 ran inside the merge."""
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    out = {}
+    with host_ransac_draws():
+        for dev in ("cpu", cuda_device):
+            at, merger = _merge_atlas_on(dev)
+            before = cuda_matcher.launches
+            done = merger.on_keyframe(at, 3, torch.from_numpy(RING_CAM).to(dev))
+            out[str(dev)] = (done, at, cuda_matcher.launches - before)
+    (dc, ac, _), (dg, ag, n_launch) = out["cpu"], out[str(cuda_device)]
+    assert dc and dg and n_launch >= 1
+    assert ac.count_maps() == ag.count_maps() == 1
+    for k in ms.FIELDS:
+        x, y = getattr(ag.current_map, k).cpu(), getattr(ac.current_map, k)
+        if x.dtype == torch.float32:
+            np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-3, err_msg=k)
+        else:
+            assert torch.equal(x, y), k
+
+
+@pytest.mark.cuda
+def test_atlas_round_trip_from_card(cuda_device, tmp_path):
+    """An Atlas of card tensors saved and loaded back onto the card: every
+    array equal, on the card, the current map the same."""
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    from orbslam3lib_tpu_torch.models import serialization as ser
+    at, _ = _merge_atlas_on(cuda_device)
+    path = str(tmp_path / "atlas.npz")
+    ser.save_atlas(at, path)
+    got = ser.load_atlas(path, device=cuda_device)
+    assert (got.count_maps(), got.current, got._dims) == (2, 1, at._dims)
+    for a, b in zip(got.maps, at.maps):
+        for k in ms.FIELDS:
+            assert getattr(a, k).device.type == "cuda"
+            assert torch.equal(getattr(a, k), getattr(b, k)), k

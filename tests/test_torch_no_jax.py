@@ -29,7 +29,8 @@ def test_port_module_list_covers_the_slice():
                 "mapping.map_ba", "models.vocabulary", "utils.smallmat",
                 "mapping.sim3", "mapping.pose_graph", "utils.lie",
                 "utils.sampling", "utils.cameras", "utils.rectify",
-                "utils.timing", "tracking.matching", "viz", "system"):
+                "utils.timing", "tracking.matching", "viz", "system",
+                "models.atlas", "models.serialization"):
         assert f"orbslam3lib_tpu_torch.{mod}" in names
 
 

@@ -8,7 +8,7 @@ room orbit at a reduced size (320x200, 4 levels, 256 keypoints, 16 KF /
 
 Also the loss timeout: lost for more than 5 s, both packages return to
 NOT_INITIALIZED on the same frame and initialise again on the next textured
-frame.
+frame; a map of more than 10 keyframes is archived in the Atlas first.
 """
 import numpy as np
 import pytest
@@ -23,7 +23,8 @@ from orbslam3lib_tpu_torch.mapping import local_mapping as tlm  # noqa: E402
 from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 
 from torch_parity import (backend_config, fast_reference_brief,  # noqa: E402,F401
-                          orbit_frames)
+                          orbit_frames, reference_ransac_draws,
+                          reference_single_device_gba)
 
 N_FRAMES = 16
 
@@ -167,18 +168,36 @@ def test_loss_timeout_matches_reference(fast_reference_brief):
     assert (tt.stats["n_resets"], tt.stats["n_new_maps"]) == (1, 0)
 
 
-def test_loss_timeout_large_map_starts_a_new_one():
-    """With more than 10 keyframes the reference starts a new map in its
-    Atlas. The port has no Atlas yet: it drops the old map, counts
-    `n_new_maps`, and initialises again."""
+def test_loss_timeout_large_map_starts_a_new_one(fast_reference_brief):
+    """With more than 10 keyframes both packages archive the lost map in
+    their Atlas (CreateMapInAtlas) on the same frame and initialise a new
+    one on the next textured frame: two maps, the new one current with its
+    first keyframe, and the archived map equal to the reference's (integer
+    and bool fields equal, f32 fields within 5 mm, as `test_final_map_agrees`
+    holds the keyframe poses), its BoW database frozen in the map merger."""
     imgs, ts, rig = orbit_frames(26)
-    tt = ttr.Tracker(backend_config(TCfg, rig), "stereo", device="cpu",
-                     enable_loop_closing=False)
+    jt = jtr.Tracker(backend_config(JCfg, rig), "stereo", enable_loop_closing=True,
+                     pipeline=0)
+    tt = ttr.Tracker(backend_config(TCfg, rig), "stereo", device="cpu")
     frames = _lost_sequence(imgs, ts, 24)
-    for img, stamp in frames[:24]:
-        tt.process_frame(img, float(stamp))
-    assert int(tt.map.n_kf) > 10
-    res = [tt.process_frame(img, float(stamp))["state"] for img, stamp in frames[24:]]
-    assert res[N_BLANK - 1] == ttr.NOT_INITIALIZED and res[N_BLANK] == ttr.OK
-    assert (tt.stats["n_resets"], tt.stats["n_new_maps"]) == (0, 1)
-    assert int(tt.map.n_kf) == 1                          # the new map's first keyframe
+    with reference_ransac_draws(), reference_single_device_gba():
+        rj, rt = _drive([jt, tt], frames)
+    assert int(tt.atlas.maps[0].n_kf) > 10
+    states = [(fj["state"], ft["state"]) for fj, ft in zip(rj, rt)]
+    assert [s for s, _ in states] == [s for _, s in states]
+    assert states[24 + N_BLANK - 1] == (ttr.NOT_INITIALIZED,) * 2
+    assert states[24 + N_BLANK] == (ttr.OK,) * 2
+    for tr in (jt, tt):
+        assert (tr.stats["n_resets"], tr.stats["n_new_maps"]) == (0, 1)
+        assert tr.atlas.count_maps() == 2 and tr.atlas.current == 1
+        assert int(tr.map.n_kf) == 1                  # the new map's first keyframe
+        assert [a["map_idx"] for a in tr.map_merger.archives] == [0]
+    tm, jm = tt.atlas.maps[0], jt.atlas.maps[0]
+    n = int(jm.n_kf)
+    assert int(tm.n_kf) == n
+    np.testing.assert_array_equal(tm.kf_valid.numpy(), np.asarray(jm.kf_valid))
+    np.testing.assert_array_equal(tm.kf_parent.numpy(), np.asarray(jm.kf_parent))
+    assert (tm.kf_mp.numpy()[:n] == np.asarray(jm.kf_mp)[:n]).mean() >= 0.98
+    np.testing.assert_allclose(tm.kf_t.numpy()[:n], np.asarray(jm.kf_t)[:n], rtol=0, atol=5e-3)
+    jdb, tdb = jt.map_merger.archives[0]["db"], tt.map_merger.archives[0]["db"]
+    np.testing.assert_array_equal(tdb.active.numpy(), np.asarray(jdb.active))

@@ -7,7 +7,9 @@ whose numbers agree to 1e-5 line by line. Also: the pipeline's backpressure
 the same frames in both; the sensors and options not ported raise
 NotImplementedError, and the ported background mapper and asynchronous
 global BA run; the PNG writer, the map render and the PLY export
-give the same bytes as the reference's `viz` for the same map arrays."""
+give the same bytes as the reference's `viz` for the same map arrays;
+`save_atlas` writes the reference's file (each package loads the other's),
+and what each package does after `load_atlas`."""
 import os
 
 import numpy as np
@@ -77,8 +79,8 @@ def test_sync_stereo_pipeline(systems):
     ti, ji = ts_.map_info(), js.map_info()
     assert (ti["n_kf"], ti["n_mp"]) == (ji["n_kf"], ji["n_mp"])
     assert ti["n_kf"] >= 2 and ti["n_mp"] > 100
-    assert ti["n_maps"] == 1 and ti["n_new_maps"] == 0
-    for k in ("n_kf", "n_frames", "track_fail", "n_loops"):
+    assert ti["n_maps"] == ji["n_maps"] == 1
+    for k in ("n_kf", "n_frames", "track_fail", "n_loops", "n_new_maps", "n_map_merges"):
         assert ts_.get_stats()[k] == js.get_stats()[k]
 
 
@@ -159,8 +161,7 @@ def test_unported_sensors_raise(sensor):
 def test_unported_options_raise(sequence):
     _, rig, _ = sequence
     s = tsys.System(small_cfg(TCfg, rig), device="cpu")
-    for call in (lambda: s.save_atlas("a.npz"), lambda: s.load_atlas("a.npz"),
-                 lambda: s.track_monocular(np.zeros((8, 8)), 0.0),
+    for call in (lambda: s.track_monocular(np.zeros((8, 8)), 0.0),
                  lambda: s.track_stereo(np.zeros((2, 8, 8)), 0.0, imu=(0, 0, 0))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -266,3 +267,128 @@ def test_async_gba_configuration_runs(sequence):
     s.shutdown()
     assert s.tracker._gba_thread is None and s.tracker._mapper_thread is None
     assert s.get_tracking_state() == OK and s.get_stats()["gba_errors"] == 0
+
+
+def _atlas_arrays(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_atlas_files_load_across_packages(systems, tmp_path):
+    """`save_atlas` writes the reference's file: the same keys, dtypes and
+    values for the same run, and each package's file loads in the other
+    with every array equal."""
+    from orbslam3lib_tpu.models import serialization as jser
+    from orbslam3lib_tpu_torch.models import serialization as tser
+    js, ts_, _, _ = systems
+    jpath, tpath = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    js.save_atlas(jpath)
+    ts_.save_atlas(tpath)
+    ja, ta = _atlas_arrays(jpath), _atlas_arrays(tpath)
+    assert sorted(ja) == sorted(ta)
+    for k in ja:
+        assert ja[k].dtype == ta[k].dtype and ja[k].shape == ta[k].shape, k
+    for k in ("_n_maps", "_current", "_dims", "map0_n_kf", "map0_kf_valid", "map0_mp_valid"):
+        np.testing.assert_array_equal(ta[k], ja[k])
+    # the JAX file in the port, the port's file in the JAX package
+    t_from_j = tser.load_atlas(jpath, device="cpu")
+    j_from_t = jser.load_atlas(tpath)
+    assert (t_from_j.count_maps(), t_from_j.current) == (1, 0)
+    assert (j_from_t.count_maps(), j_from_t.current) == (1, 0)
+    for k in tms.FIELDS:
+        np.testing.assert_array_equal(getattr(t_from_j.maps[0], k).numpy(), ja[f"map0_{k}"])
+        np.testing.assert_array_equal(np.asarray(getattr(j_from_t.maps[0], k)), ta[f"map0_{k}"])
+
+
+def test_save_load_round_trip(systems, sequence, tmp_path):
+    """The port's file loads into a fresh System with every array equal and
+    the same `map_info`."""
+    _, ts_, _, _ = systems
+    frames, rig, _ = sequence
+    path = str(tmp_path / "t.npz")
+    ts_.save_atlas(path)
+    fresh = tsys.System(small_cfg(TCfg, rig), enable_loop_closing=False, device="cpu")
+    fresh.load_atlas(path)
+    assert fresh.map_info() == ts_.map_info()
+    for a, b in zip(fresh.tracker.atlas.maps, ts_.tracker.atlas.maps):
+        for k in tms.FIELDS:
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+    fresh.shutdown()
+
+
+def test_save_atlas_while_the_mapper_thread_runs(sequence, tmp_path):
+    """With `background_mapping` the mapper thread inserts keyframes and
+    merges maps under the tracker's map lock, so `save_atlas` and
+    `map_info` wait for it: held by another thread, neither returns until
+    it is released. A save after every frame, the mapper thread still at
+    work, loads back with the keyframe count never falling; after
+    `shutdown` the file equals the Atlas array for array."""
+    import threading
+
+    from orbslam3lib_tpu_torch.models import serialization as tser
+    frames, rig, _ = sequence
+    s = tsys.System(small_cfg(TCfg, rig), background_mapping=True, enable_loop_closing=False,
+                    device="cpu")
+    for call in (lambda: s.save_atlas(str(tmp_path / "held.npz")), s.map_info):
+        with s.tracker._map_lock:
+            th = threading.Thread(target=call)
+            th.start()
+            th.join(0.3)
+            assert th.is_alive()              # waits for the map lock
+        th.join(10.0)
+        assert not th.is_alive()
+    n_kf = []
+    for i, (img_pair, _, stamp) in enumerate(frames):
+        s.track_stereo(img_pair, stamp)
+        path = str(tmp_path / f"{i}.npz")
+        s.save_atlas(path)
+        at = tser.load_atlas(path, device="cpu")
+        assert at.count_maps() == 1 and at.current == 0
+        n_kf.append(int(at.current_map.n_kf))
+    s.shutdown()
+    assert n_kf == sorted(n_kf) and n_kf[-1] > 1
+    assert s.get_stats()["mapper_errors"] == 0
+    path = str(tmp_path / "final.npz")
+    s.save_atlas(path)
+    loaded = tser.load_atlas(path, device="cpu")
+    for k in tms.FIELDS:
+        assert torch.equal(getattr(loaded.maps[0], k), getattr(s.tracker.map, k)), k
+
+
+def test_load_atlas_starts_a_map_of_its_own(systems, sequence, tmp_path):
+    """What each package does after `load_atlas` and one more frame.
+
+    Named exception, a fault of the reference (ROADMAP queue 3): its
+    `System.load_atlas` swaps the Atlas and nothing else, so its live BoW
+    database stays empty of the loaded keyframes and its next
+    initialisation inserts a keyframe at the identity pose into the loaded
+    map. The port starts over on the loaded maps: the live database is
+    rebuilt from the loaded map, and the first initialisation archives it
+    (its database goes to the map merger) and starts a map of its own."""
+    js, _, _, _ = systems
+    frames, rig, _ = sequence
+    path = str(tmp_path / "j.npz")
+    js.save_atlas(path)
+    n_kf = js.map_info()["n_kf"]
+    img, _, stamp = frames[0]
+
+    jfresh = jsys.System(small_cfg(JCfg, rig), jsys.SENSOR_STEREO)
+    jfresh.load_atlas(path)
+    jfresh.track_stereo(img, stamp)
+    assert jfresh.map_info()["n_maps"] == 1
+    assert jfresh.map_info()["n_kf"] == n_kf + 1               # into the loaded map
+    assert int(np.asarray(jfresh.tracker.place_rec.active).sum()) == 1
+    jfresh.shutdown()
+
+    tfresh = tsys.System(small_cfg(TCfg, rig), device="cpu")
+    tfresh.load_atlas(path)
+    tr = tfresh.tracker
+    assert int(tr.place_rec.active.sum()) == n_kf              # rebuilt from the map
+    loaded = tr.atlas.current_map
+    tfresh.track_stereo(img, stamp)
+    assert tfresh.map_info()["n_maps"] == 2 and tfresh.map_info()["n_kf"] == 1
+    assert tr.atlas.maps[0] is loaded and int(loaded.n_kf) == n_kf
+    arc = tr.map_merger.archives
+    assert [a["map_idx"] for a in arc] == [0] and int(arc[0]["db"].active.sum()) == n_kf
+    assert tfresh.get_stats()["n_new_maps"] == 1
+    tfresh.shutdown()

@@ -288,3 +288,75 @@ def ring_world(seed: int = 71, n_kf: int = 12, drift_per_kf: float = 0.012,
     arr["mp_max_dist"] = dist.astype(np.float32)
     arr["mp_min_dist"] = (dist / 5.0).astype(np.float32)
     return arr, true, descs
+
+
+def _merge_ring_kf_pose(theta, radius=2.0):
+    c = np.array([radius * np.cos(theta), 0.0, radius * np.sin(theta)], np.float32)
+    fwd = np.array([np.cos(theta), 0.0, np.sin(theta)], np.float32)
+    right = np.cross(np.array([0.0, 1.0, 0.0], np.float32), fwd)
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    R = np.stack([right, down, fwd], axis=1).astype(np.float32).T
+    return R, -R @ c
+
+
+def merge_ring_maps(thetas_a=(0.0, 0.4, 0.8, 1.2, 1.6),
+                    thetas_b=(2.4, 2.8, 3.2, 0.05), G=None, seed: int = 42,
+                    n_feat: int = 160, n_pts: int = 360):
+    """tests/test_map_merge.py's two ring maps as numpy map arrays, built
+    with numpy and the port's map model only (no JAX, so the card's tests
+    use them too): landmarks on a cylinder wall, map A's keyframes at
+    `thetas_a` in the true world, map B's at `thetas_b` in the world
+    G = (R_g, t_g, s): x_B = s R_g x + t_g (default: a 0.3 rad yaw, a
+    translation and scale 1.25); B's last keyframe revisits A's area.
+    Returns (map A arrays, map B arrays, G, points, descriptors)."""
+    import torch
+    from orbslam3lib_tpu_torch.models import map_state as tms
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, n_pts, endpoint=False)
+    pts = np.stack([6.0 * np.cos(ang), rng.uniform(-1.5, 1.5, n_pts),
+                    6.0 * np.sin(ang)], axis=1).astype(np.float32)
+    descs = rng.integers(0, 2, size=(n_pts, 256)).astype(np.int8)
+    if G is None:
+        c, s_ = np.cos(0.3), np.sin(0.3)
+        G = (np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], np.float32),
+             np.array([0.5, 0.2, -0.3], np.float32), 1.25)
+    cam = RING_CAM
+
+    def build(thetas, G_):
+        R_g, t_g, s = G_
+        F = n_feat
+        m = tms.empty_map(max_kf=32, max_mp=1024, n_feat=F)
+        first = np.full(n_pts, -1, np.int32)
+        for i, th in enumerate(thetas):
+            R, t = _merge_ring_kf_pose(th)
+            p_c = pts @ R.T + t
+            uv = np.stack([cam[0] * p_c[:, 0] / p_c[:, 2] + cam[2],
+                           cam[1] * p_c[:, 1] / p_c[:, 2] + cam[3]], axis=1)
+            ok = (p_c[:, 2] > 1.0) & (uv[:, 0] > 5) & (uv[:, 0] < 635) & \
+                 (uv[:, 1] > 5) & (uv[:, 1] < 395)
+            sel = np.nonzero(ok)[0][:F]
+            n = len(sel)
+            xy = np.zeros((F, 2), np.float32)
+            desc = np.zeros((F, 256), np.int8)
+            fv = np.zeros(F, bool)
+            assoc = np.full(F, -1, np.int32)
+            xy[:n], desc[:n], fv[:n], assoc[:n] = uv[sel], descs[sel], True, sel
+            first[sel[first[sel] < 0]] = i
+            R_m = (R @ R_g.T).astype(np.float32)
+            t_m = (s * t - R_m @ t_g).astype(np.float32)
+            tms.insert_keyframe(m, torch.from_numpy(R_m), torch.from_numpy(t_m), float(i),
+                                torch.from_numpy(xy), torch.zeros(F, dtype=torch.int32),
+                                torch.from_numpy(desc), torch.from_numpy(fv),
+                                torch.from_numpy(assoc), torch.zeros(F))
+        arr = tms.to_numpy(m)
+        obs = first >= 0
+        arr["mp_pos"][:n_pts][obs] = pts[obs] @ R_g.T * s + t_g
+        arr["mp_valid"][:n_pts] = obs
+        arr["mp_desc"][:n_pts][obs] = descs[obs]
+        arr["mp_first_kf"][:n_pts][obs] = first[obs]
+        arr["n_mp"] = np.int32(n_pts)
+        return arr
+
+    ident = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 1.0)
+    return build(thetas_a, ident), build(thetas_b, G), G, pts, descs

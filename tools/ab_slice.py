@@ -14,8 +14,10 @@ tracking configuration and loop closing on (chip_smoke.py's phase 3
 without its jolt and kidnap). Per run it prints one JSON line: the host
 time per frame (synchronised per frame; median and p90 over the frames
 outside the profiled window), and, from torch.profiler over PROFILED
-frames starting at PROFILE_AT, cudaLaunchKernel calls and device events
-per frame; then keyframes, loops and failures. `--no-profile` leaves the
+frames starting at PROFILE_AT, cudaLaunchKernel calls, device events and
+host reads (`aten::_local_scalar_dense`, a scalar read back to the host,
+and `cudaStreamSynchronize` calls) per frame; then keyframes, loops and
+failures. `--no-profile` leaves the
 profiler out (no launch counts; every frame timed), so that a run takes
 seconds instead of minutes and many alternating pairs fit in one call.
 """
@@ -59,10 +61,16 @@ def worker(root: str, frames_file: str, label: str, profiled: bool) -> int:
             frame_ms.append((time.perf_counter() - t0) * 1e3)
         if profiled and i == PROFILE_AT + PROFILED - 1:
             prof.__exit__(None, None, None)
-    launches = dev_events = None
+    launches = dev_events = scalar_reads = stream_syncs = None
     if profiled:
         ka = prof.key_averages()
-        launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel") / PROFILED
+
+        def per_frame(key):
+            return sum(e.count for e in ka if e.key == key) / PROFILED
+
+        launches = per_frame("cudaLaunchKernel")
+        scalar_reads = per_frame("aten::_local_scalar_dense")
+        stream_syncs = per_frame("cudaStreamSynchronize")
         dev_events = sum(e.count for e in ka
                          if e.device_type == torch.autograd.DeviceType.CUDA) / PROFILED
     st = tr.stats
@@ -73,6 +81,8 @@ def worker(root: str, frames_file: str, label: str, profiled: bool) -> int:
         "mean_ms": float(np.mean(frame_ms)),
         "launches_per_frame": launches,
         "device_events_per_frame": dev_events,
+        "scalar_reads_per_frame": scalar_reads,
+        "stream_syncs_per_frame": stream_syncs,
         "profiled_frames": [PROFILE_AT, PROFILE_AT + PROFILED] if profiled else None,
         "n_kf": st["n_kf"], "n_loops": st["n_loops"],
         "track_fail": st["track_fail"]}), flush=True)

@@ -7,6 +7,7 @@ machine).
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase pinhole
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase radtan --frames 400
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase production
+    JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase multimap
 
 Phases (frames rendered by the port's numpy renderer, the same frames the
 smoke feeds the port; bench.py's configuration: 640x400, 512 keypoints, 8
@@ -38,6 +39,14 @@ levels, 2x2 pose iterations, loop closing on, `pipeline=0`):
            and decides keyframes on frames tracked against a map that lags
            by up to 16 frames: 152 populate keyframes instead of the 121
            both packages make when each chunk is consumed at once.
+  multimap  phase M: the pinhole orbit's 400 frames with frames
+           GREY_START..GREY_START+GREY_LEN-1 flat grey (their stamps kept):
+           the tracker loses map A there, the 5 s timeout archives it in the
+           Atlas and starts map B, which initialises on the first textured
+           frame after the window; when the orbit comes back to A's start
+           the map merger welds A into B. Prints the spawn and merge frames,
+           the maps' keyframe counts, the merged map's keyframe ATE (A's
+           keyframes in B's world) and each map's trajectory ATE.
 Prints one JSON line per phase: trajectory and keyframe ATE (m, SE(3)
 aligned to the analytic orbit), keyframes, loops and their pairs, the loop
 frame, failures and (compact) compactions; production also the windows,
@@ -60,12 +69,14 @@ sys.path.insert(0, ROOT)
 DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
 KB8_K = (0.02, -0.01, 0.003, 0.0)
 DEFAULT_FRAMES = {"pinhole": 400, "radtan": 400, "kb8": 180, "compact": 150,
-                  "production": 376}
+                  "production": 376, "multimap": 400}
 # bench.py's full_slam protocol (bench.py:39-42)
 N_POPULATE, N_WARM, N_WINDOWS, N_WINDOW = 240, 16, 3, 40
 JOLT_FRAME = 370
 JOLT_PRIOR = ((0.0, 0.2, 0.0), (0.3, 0.0, 0.0))
 KIDNAP_BACK = 180
+# phase M's grey window (chip_smoke.py's MULTIMAP_GREY)
+GREY_START, GREY_LEN = 180, 80
 
 
 def bench_config(cfg_cls, rig):
@@ -115,10 +126,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=sorted(DEFAULT_FRAMES), required=True)
     ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--grey-start", type=int, default=GREY_START,
+                    help="multimap: the first grey frame")
     args = ap.parse_args()
     n = args.frames or DEFAULT_FRAMES[args.phase]
     if args.phase == "production":
         return production()
+    if args.phase == "multimap":
+        return multimap(n, args.grey_start)
 
     import jax.numpy as jnp
     from orbslam3lib_tpu.config import CameraConfig, SlamConfig
@@ -285,6 +300,79 @@ def production() -> int:
            "trajectory_frames": len(traj), "gba_started": starts[0],
            "gba_merges": merges[0],
            "loop_latency_ms": tr.stats.get("loop_latency_ms")}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def grey_out(imgs, start: int, length: int):
+    """Phase M's frames: a copy of the orbit with a window of flat grey."""
+    out = imgs.copy()
+    out[start:start + length] = 128
+    return out
+
+
+def multimap(n: int, grey_start: int) -> int:
+    """Phase M on the JAX reference (see the module docstring)."""
+    from orbslam3lib_tpu.config import SlamConfig
+    from orbslam3lib_tpu.tracking import tracker as jtr
+    from orbslam3lib_tpu_torch.evaluation import multimap_report
+    from orbslam3lib_tpu_torch.io.synthetic import StereoRig, render_orbit_sequence
+
+    t0 = time.time()
+    imgs, ts, rig = render_orbit_sequence(n, StereoRig())
+    imgs = grey_out(imgs, grey_start, GREY_LEN)
+    render_s = time.time() - t0
+    cfg = bench_config(SlamConfig, rig)
+    tr = jtr.Tracker(cfg, "stereo", enable_loop_closing=True, pipeline=0)
+    ev = {"spawn": None, "merge": None}
+    origins = []
+    frame = [0]
+    real_spawn = tr._spawn_new_map
+
+    def spawn_logged():
+        ev["spawn"] = {"frame": frame[0], "n_kf_a": int(tr.map.n_kf),
+                       "ts_origin_a": tr._ts_origin}
+        real_spawn()
+
+    tr._spawn_new_map = spawn_logged
+    real_merge = tr.atlas.merge
+
+    def merge_logged(src_idx, *a):
+        src = tr.atlas.maps[src_idx]
+        ev["merge"] = {"frame": frame[0], "n_kf_b_before": int(tr.atlas.current_map.n_kf),
+                       "n_kf_a_valid": int(np.asarray(src.kf_valid).sum())}
+        real_merge(src_idx, *a)
+
+    tr.atlas.merge = merge_logged
+    states, trajectory = [], []
+    t1 = time.time()
+    for i in range(n):
+        frame[0] = i
+        n_traj = len(tr.trajectory)
+        states.append(int(tr.process_frame(imgs[i], float(ts[i]))["state"]))
+        f = tr.trajectory[-1] if len(tr.trajectory) > n_traj else None
+        trajectory.append(None if f is None else
+                          (f[0], np.asarray(f[1], np.float64), np.asarray(f[2], np.float64)))
+        if ev["merge"] is not None and "n_kf_after" not in ev["merge"]:
+            ev["merge"]["n_kf_after"] = int(tr.map.n_kf)
+    run_s = time.time() - t1
+    m = tr.map
+    if ev["merge"] is not None:
+        nb = ev["merge"]["n_kf_b_before"]
+        origins = [(0, tr._ts_origin), (nb, ev["spawn"]["ts_origin_a"]),
+                   (nb + ev["merge"]["n_kf_a_valid"], tr._ts_origin)]
+    else:
+        origins = [(0, tr._ts_origin)]
+    arrays = tuple(np.asarray(x) for x in (m.kf_valid, m.kf_R, m.kf_t, m.kf_ts))
+    out = {"phase": "multimap", "frames": n, "grey": [grey_start, grey_start + GREY_LEN - 1],
+           "render_s": round(render_s, 1), "run_s": round(run_s, 1),
+           "spawn": ev["spawn"], "merge": ev["merge"],
+           "n_new_maps": tr.stats["n_new_maps"], "n_map_merges": tr.stats["n_map_merges"],
+           "n_maps_end": tr.atlas.count_maps(), "map_n_kf_end": int(m.n_kf),
+           "n_kf_created": tr.stats["n_kf"], "n_loops": tr.stats["n_loops"],
+           "track_fail": tr.stats["track_fail"], "state": int(tr.state),
+           **multimap_report(arrays, origins, ev["spawn"], ev["merge"], trajectory,
+                             states)}
     print(json.dumps(out), flush=True)
     return 0
 
