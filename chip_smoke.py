@@ -109,10 +109,34 @@ Phases, each fatal on failure:
      (CUDA events: archive query, cross match, Sim(3), transform +
      merge_into, welding BA, BoW rebuild) and the peak device memory with
      two maps.
-  Phases 4-8 each reset the launch counters just before their frames and
+  9. O, monocular: the left images of phase 3's first N_MONO frames
+     through `System(cfg, "mono").track_monocular` (two-view
+     initialisation, then tracking without depth, loop closing on), with
+     phase 3's wrong motion prior before frame MONO_JOLT_FRAME so that the
+     TrackReferenceKeyFrame fallback launches kernel 2. Checks against the
+     reference's run of the same frames (REF_MONO, tools/reference_smoke.py
+     --phase mono --median-depth: the reference with its initial map scaled
+     to median depth 1, as the port scales it): the initialisation frame
+     within MONO_INIT_TOL (the card draws its own two-view hypotheses), the
+     initial map's median depth 1, keyframes within +-2, no failure, the
+     jolted frame recovered by the fallback, state OK, the Sim(3)-aligned
+     ATE within x 1.5 + 5 mm, kernel 1 once per frame and kernel 2 at least
+     once. Printed: the initialisation's stages in device ms and their host
+     syncs per attempt (the batched SVDs).
+ 10. R, RGB-D: the left images of phase 3's first N_RGBD frames with the
+     depth maps of `io.synthetic.orbit_depth_maps` through
+     `System(cfg, "rgbd").track_rgbd` (the depth read at the keypoints on
+     the card, then the stereo tracker), with the wrong motion prior before
+     frame RGBD_JOLT_FRAME. Checks against REF_RGBD (tools/reference_smoke.py
+     --phase rgbd): state OK, no failure, keyframes within +-2, the ATE
+     within x 1.5 + 5 mm, kernel 1 once per frame, kernel 2 at least once,
+     no host sync in the depth gather.
+  Phases 4-10 each reset the launch counters just before their frames and
   read them just after; each kernel must launch on each of them (counts in
-  the kernels line, `launches_by_path`). The sequences render in three
-  processes started before the card is used.
+  the kernels line, `launches_by_path`). The sequences and the depth maps
+  render in four processes started before the card is used. Kernel 1 is
+  also checked bit-exact and timed at batch 1 (one image's 8 levels, the
+  mono and RGB-D frame: `batch1` in its row).
 
 The last three lines of standard output are the card's name and power
 limit (as nvidia-smi gives them), one JSON object with a row per kernel,
@@ -200,6 +224,28 @@ MULTIMAP_GREY = (180, 259)
 REF_MULTIMAP = {"spawn_frame": 256, "merge_frame": 351, "n_kf_merged": 22,
                 "kf_ate_merged_m": 0.050335, "ate_a_m": 0.030220, "ate_b_m": 0.022286}
 
+# Phase O: the pinhole orbit's left images, frames 0..N_MONO-1 (the JAX
+# reference's monocular tracker loses track at frame 130 and holds before
+# it), the wrong prior of phase 3 before MONO_JOLT_FRAME. The reference on
+# the CPU on these frames (tools/reference_smoke.py --phase mono
+# --median-depth, its initial map scaled to median depth 1 as the port's):
+# initialised at frame 22, 7 keyframes, no failure, one fallback, ATE
+# 0.074012 m after a Sim(3) alignment (0.088103 m and 6 keyframes with its
+# map unscaled).
+REF_MONO = {"init_frame": 22, "n_kf": 7, "ate_sim3_m": 0.074012}
+N_MONO = 130
+MONO_JOLT_FRAME = 100
+# the initialisation frame's tolerance: the port on the CPU with four seeds
+# of its two-view draws initialised at frames 14, 14, 22 and 32
+MONO_INIT_TOL = 12
+# Phase R: the pinhole orbit's first N_RGBD left images and depth maps, the
+# wrong prior before RGBD_JOLT_FRAME. The reference on the CPU
+# (tools/reference_smoke.py --phase rgbd), the wrong prior before frame 150:
+# 13 keyframes, no failure, ATE 0.040180 m (SE(3)-aligned).
+REF_RGBD = {"n_kf": 13, "ate_m": 0.040180}
+N_RGBD = 180
+RGBD_JOLT_FRAME = 150
+
 FAST_SHAPES = [(400, 640), (320, 512), (240, 384), (196, 314), (160, 256),
                (127, 203), (101, 161), (80, 128)]
 # level lists whose widths are not multiples of 4 (kernel 1 in one launch)
@@ -270,12 +316,13 @@ def knn_bound(na: int, nb: int, masked: bool):
     return bound(n_bytes, KNN_OPS_PER_PAIR * na * nb)
 
 
-def check_fast(dev, gen, rendered_levels):
+def check_fast(dev, gen, rendered_levels, rendered_image_levels):
     """Kernel 1 vs nms3x3(fast_scores(.)) on the card: every level shape at
     DETECT_MARGIN and 64x128 at margin 3, random and rendered images, one
     level per launch; then every level of a list in one launch: the
-    rendered frame's, random ones at every FAST_SHAPES entry, and levels
-    whose widths are not multiples of 4."""
+    rendered frame's (both eyes), its left image's alone (batch 1, the
+    mono and RGB-D frame), random ones at every FAST_SHAPES entry, and
+    levels whose widths are not multiples of 4."""
     from orbslam3lib_tpu_torch.ops import cuda_fast
     from orbslam3lib_tpu_torch.ops.extractor import DETECT_MARGIN
     cases = [(torch.randint(0, 256, (2, h, w), generator=gen, dtype=torch.uint8),
@@ -294,6 +341,7 @@ def check_fast(dev, gen, rendered_levels):
         err = max(err, max_err(got, want))
     level_lists = {
         "rendered frame": list(rendered_levels),
+        "rendered image (batch 1)": list(rendered_image_levels),
         "FAST_SHAPES": [torch.randint(0, 256, (2, h, w), generator=gen,
                                       dtype=torch.uint8).float() for h, w in FAST_SHAPES],
         "odd widths": [torch.rand((2, h, w), generator=gen) * 255.0 for h, w in ODD_SHAPES],
@@ -512,13 +560,15 @@ def run_system(cfg, frames, dev, setup=None):
     return sys_, results, frame_ms, launches
 
 
-def trajectory_ate(tracker, ts) -> float:
+def trajectory_ate(tracker, ts, with_scale: bool = False) -> float:
+    """The trajectory's ATE against the analytic orbit; `with_scale` aligns
+    by a Sim(3) (a monocular map has no metric scale)."""
     from orbslam3lib_tpu_torch.evaluation import ate_rmse
     from orbslam3lib_tpu_torch.io.synthetic import orbit_pose_at
     c = tracker.trajectory_centers()
     t = np.asarray([f[0] for f in tracker.trajectory])
-    return ate_rmse(c, orbit_pose_at(t, period=24.0, radius=0.5)[1]) if len(c) >= 3 \
-        else float("inf")
+    return ate_rmse(c, orbit_pose_at(t, period=24.0, radius=0.5)[1], with_scale=with_scale) \
+        if len(c) >= 3 else float("inf")
 
 
 def path_line(name, frame_ms, sys_, launches, ate, extra="") -> str:
@@ -990,17 +1040,157 @@ def phase_multimap(dev, imgs, ts, rig):
     return checks, launches
 
 
+def jolt_prior(dev):
+    from orbslam3lib_tpu_torch.utils import lie
+    return (lie.so3_exp(torch.tensor(JOLT_PRIOR[0], device=dev)),
+            torch.tensor(JOLT_PRIOR[1], device=dev))
+
+
+def run_frames(sys_, frames, jolt_frame, dev):
+    """Feed (entry point arguments) per frame to `sys_`, the wrong motion
+    prior before frame `jolt_frame`, each frame synchronised; the launch
+    counters zeroed just before and read just after. Returns the results,
+    host ms per frame and the launches."""
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
+    entry = sys_.track_monocular if sys_.sensor == "mono" else sys_.track_rgbd
+    jolt = jolt_prior(dev)
+    torch.cuda.synchronize()
+    cuda_fast.reset_count()
+    cuda_matcher.reset_count()
+    results, frame_ms = [], []
+    for i, args in enumerate(frames):
+        if i == jolt_frame:
+            sys_.tracker.vel = jolt
+        t0 = time.perf_counter()
+        results.append(entry(*args))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"fast_scores_nms": cuda_fast.launches,
+                "knn_match_fused": cuda_matcher.launches}
+    return results, frame_ms, launches
+
+
+def phase_mono(dev, imgs, ts, rig):
+    """Phase O: monocular SLAM through `System.track_monocular`."""
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_tracking_config
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    from orbslam3lib_tpu_torch.system import System
+    from orbslam3lib_tpu_torch.tracking import matching, tracker as ttr
+    timers = {"match_for_initialization": StepTimer(matching.match_for_initialization),
+              "reconstruct_two_views": StepTimer(ttr.reconstruct_two_views),
+              "_mono_init_map": StepTimer(ttr._mono_init_map)}
+    saved = (matching.match_for_initialization, ttr.reconstruct_two_views, ttr._mono_init_map)
+    init_depth = []
+
+    def init_map(*a, **k):
+        out = timers["_mono_init_map"](*a, **k)
+        m = ms.to_numpy(out[0])
+        z = np.sort(m["mp_pos"][m["mp_valid"]][:, 2])
+        init_depth.append(float(z[(len(z) - 1) // 2]))      # the lower median
+        return out
+
+    sys_ = System(orbit_tracking_config(rig), "mono", device=dev)
+    matching.match_for_initialization = timers["match_for_initialization"]
+    ttr.reconstruct_two_views = timers["reconstruct_two_views"]
+    ttr._mono_init_map = init_map
+    try:
+        results, frame_ms, launches = run_frames(
+            sys_, [(imgs[i, 0], float(ts[i])) for i in range(N_MONO)], MONO_JOLT_FRAME, dev)
+    finally:
+        matching.match_for_initialization, ttr.reconstruct_two_views, ttr._mono_init_map = \
+            saved
+    tr = sys_.tracker
+    st = sys_.get_stats()
+    sys_.shutdown()
+    states = [int(r["state"]) for r in results]
+    init_frame = next((i for i, r in enumerate(results) if r.get("init")), None)
+    ate = trajectory_ate(tr, ts, with_scale=True)
+    ref = REF_MONO
+    log(path_line("O (monocular)", frame_ms, sys_, launches, ate,
+                  f"; initialised at frame {init_frame} (reference {ref['init_frame']}), "
+                  f"initial map's median depth {init_depth}; fallbacks "
+                  f"{st['ref_kf_fallbacks']}, jolted frame {results[MONO_JOLT_FRAME]}"))
+    per = {n: t.ms() for n, t in timers.items()}
+    n_att = len(timers["reconstruct_two_views"].events)
+    print(f"O mono: median {np.median(frame_ms):.2f} ms, p90 {np.percentile(frame_ms, 90):.2f} "
+          f"ms per frame; init frame {init_frame}, {st['n_kf']} KFs, {st['track_fail']} "
+          f"failures; Sim(3)-aligned ATE {ate:.6f} m (reference {ref['ate_sim3_m']}); "
+          "initialisation, device ms per attempt (CUDA events): "
+          + "; ".join(stage_line(n, per[n]) for n in timers)
+          + f"; host syncs per attempt: "
+          + ", ".join(f"{n} {len(t.syncs) / max(len(t.events), 1):.1f}"
+                      for n, t in timers.items()) + f" ({n_att} reconstructions)")
+    checks = {
+        "O: initialisation frame within MONO_INIT_TOL of the reference's":
+            init_frame is not None and abs(init_frame - ref["init_frame"]) <= MONO_INIT_TOL,
+        "O: one initialisation, its map at median depth 1":
+            len(init_depth) == 1 and abs(init_depth[0] - 1.0) < 1e-3,
+        "O: keyframes within 2 of the reference's": abs(st["n_kf"] - ref["n_kf"]) <= 2,
+        "O: no failure, state OK from the initialisation on":
+            st["track_fail"] == 0 and init_frame is not None
+            and all(s == 1 for s in states[init_frame:]),
+        "O: the jolted frame took the fallback and tracked":
+            st["ref_kf_fallbacks"] >= 1 and states[MONO_JOLT_FRAME] == 1,
+        "O: Sim(3)-aligned ATE within the reference's bound": ate_within(ate, ref["ate_sim3_m"]),
+        "O: kernel 1 once per frame": launches["fast_scores_nms"] == N_MONO,
+        "O: kernel 2 launched": launches["knn_match_fused"] >= 1,
+    }
+    return checks, launches
+
+
+def phase_rgbd(dev, imgs, ts, depths, rig):
+    """Phase R: RGB-D through `System.track_rgbd`."""
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_tracking_config
+    from orbslam3lib_tpu_torch.system import System
+    sys_ = System(orbit_tracking_config(rig), "rgbd", device=dev)
+    gather = StepTimer(sys_.tracker._rgbd_observations)
+    sys_.tracker._rgbd_observations = gather
+    results, frame_ms, launches = run_frames(
+        sys_, [(imgs[i, 0], depths[i], float(ts[i])) for i in range(N_RGBD)],
+        RGBD_JOLT_FRAME, dev)
+    st = sys_.get_stats()
+    sys_.shutdown()
+    ate = trajectory_ate(sys_.tracker, ts)
+    ref = REF_RGBD
+    log(path_line("R (RGB-D)", frame_ms, sys_, launches, ate,
+                  f"; depth gather: {len(gather.events)} calls, host syncs "
+                  f"{len(gather.syncs)}, device {stage_line('ms', gather.ms())}; fallbacks "
+                  f"{st['ref_kf_fallbacks']}, jolted frame {results[RGBD_JOLT_FRAME]}"))
+    print(f"R rgbd: median {np.median(frame_ms):.2f} ms, p90 {np.percentile(frame_ms, 90):.2f} "
+          f"ms per frame; {st['n_kf']} KFs; ATE {ate:.6f} m (reference {ref['ate_m']})")
+    checks = {
+        "R: state OK, no failure": all(int(r["state"]) == 1 for r in results)
+            and st["track_fail"] == 0,
+        "R: keyframes within 2 of the reference's": abs(st["n_kf"] - ref["n_kf"]) <= 2,
+        "R: the jolted frame took the fallback": st["ref_kf_fallbacks"] >= 1,
+        "R: ATE within the reference's bound": ate_within(ate, ref["ate_m"]),
+        "R: kernel 1 once per frame": launches["fast_scores_nms"] == N_RGBD,
+        "R: kernel 2 launched": launches["knn_match_fused"] >= 1,
+        "R: depth gathered on every frame, no host sync":
+            len(gather.events) == N_RGBD and not gather.syncs,
+    }
+    return checks, launches
+
+
+def render_depths(n: int):
+    """Phase R's depth maps (numpy only; runs in a worker process)."""
+    from orbslam3lib_tpu_torch.io.synthetic import StereoRig, orbit_depth_maps
+    t0 = time.perf_counter()
+    return orbit_depth_maps(n, StereoRig()), time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("[smoke] CUDA is not available: this smoke test needs one CUDA card")
         return 2
     t_start = time.perf_counter()
     # the sequences render in worker processes, forked before CUDA is used
-    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("fork"))
+    pool = ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("fork"))
     try:
         jobs = {"pinhole": pool.submit(render, N_FRAMES, {}),
                 "radtan": pool.submit(render, N_RADTAN, {"dist": DIST}),
-                "kb8": pool.submit(render, N_KB8, KB8_RIG)}
+                "kb8": pool.submit(render, N_KB8, KB8_RIG),
+                "depths": pool.submit(render_depths, N_RGBD)}
         return run(jobs, t_start)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -1015,7 +1205,6 @@ def run(jobs, t_start) -> int:
     from orbslam3lib_tpu_torch.ops.extractor import extract_orb_stereo
     from orbslam3lib_tpu_torch.tracking import tracker as ttr
     from orbslam3lib_tpu_torch.tracking.tracker import OK, Tracker
-    from orbslam3lib_tpu_torch.utils import lie
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -1035,10 +1224,16 @@ def run(jobs, t_start) -> int:
         f"{time.perf_counter() - t0:.1f} s)")
     gen = torch.Generator().manual_seed(0)
     rendered = pyramid.build_pyramid(torch.as_tensor(imgs[0], device=dev), 8)
-    fast_err = check_fast(dev, gen, rendered)
+    # batch 1: the left image's 8 levels (a mono or RGB-D frame)
+    rendered1 = pyramid.build_pyramid(torch.as_tensor(imgs[0][:1], device=dev), 8)
+    fast_err = check_fast(dev, gen, rendered, rendered1)
     knn_err = check_knn(dev, gen)
     fast_t = time_fast(rendered)
     knn_t = time_knn(dev, gen)
+    fast1_t = {"max_abs_err": fast_err, **time_fast(rendered1)}
+    log("[smoke] fast_scores_nms_levels at batch 1 (8 levels of one 640x400 image), "
+        "bit-exact, ms: " + ", ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+                                      for k, v in fast1_t.items()))
     log(f"[smoke] fast_scores_nms_levels (one frame: 8 levels x 2 eyes, 640x400), ms: "
         + ", ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in fast_t.items()))
@@ -1075,8 +1270,7 @@ def run(jobs, t_start) -> int:
                  lc_mod.LoopCloser.correct)
     lc_mod.LoopCloser.correct = lambda self, *a, **k: correct_t(self, *a, **k)
     tracker = Tracker(cfg, sensor="stereo", device=dev)
-    jolt = (lie.so3_exp(torch.tensor(JOLT_PRIOR[0], device=dev)),
-            torch.tensor(JOLT_PRIOR[1], device=dev))
+    jolt = jolt_prior(dev)
     dt = float(ts[1] - ts[0])
     kid = N_FRAMES - KIDNAP_BACK
     frames = [(imgs[i], float(ts[i])) for i in range(N_FRAMES)] + \
@@ -1218,11 +1412,18 @@ def run(jobs, t_start) -> int:
     checks.update(c)
     c, by_path["M"] = phase_multimap(dev, imgs, ts, rig)
     checks.update(c)
+    c, by_path["mono"] = phase_mono(dev, imgs, ts, rig)
+    checks.update(c)
+    depths, render_r = jobs["depths"].result()
+    c, by_path["rgbd"] = phase_rgbd(dev, imgs, ts, depths, rig)
+    checks.update(c)
+    del depths
     for path, counts in by_path.items():
         for name, n in counts.items():
             checks[f"{name} launched on the {path} path"] = n >= 1
     log(f"[smoke] rendering (in worker processes): radtan {render_d:.1f} s, kb8 "
-        f"{render_f:.1f} s; command so far {time.perf_counter() - t_start:.1f} s")
+        f"{render_f:.1f} s, depth maps {render_r:.1f} s; command so far "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -1235,6 +1436,7 @@ def run(jobs, t_start) -> int:
          "replaces": "orbslam3lib_tpu/ops/pallas_fast.py:92",
          "launches": launches["fast_scores_nms"], "max_abs_err": fast_err,
          **fast_t, "library_ms": None, "ptxas": ptxas.get("fast_nms_levels_kernel"),
+         "batch1": fast1_t,
          "launches_by_path": {p: c["fast_scores_nms"] for p, c in by_path.items()}},
         {"name": "knn_match_fused", "route": "cuda", "source": src + "knn2.cu",
          "replaces": "orbslam3lib_tpu/ops/pallas_matcher.py:77",

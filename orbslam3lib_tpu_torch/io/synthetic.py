@@ -150,20 +150,17 @@ class CorridorWorld:
         # (optional) back wall
         self.tex = [_NoiseTexture(s + i, base_scale=3.0) for i in range(6)]
 
-    def render(self, R_cw: np.ndarray, c_w: np.ndarray, rig: StereoRig,
-               noise_sigma: float = 1.5, rng=None, rays=None) -> np.ndarray:
-        """Render one grayscale image for camera with world-from-cam rotation
-        R_cw (3,3) and center c_w (3,). `rays`: the rig's `ray_grid`, when the
-        caller has it (it does not change between frames). Returns (H, W)
-        float32 in [0, 255]."""
+    def _trace(self, R_cw: np.ndarray, c_w: np.ndarray, rig: StereoRig, rays=None,
+               img=None) -> np.ndarray:
+        """The first plane each pixel's ray hits: returns the ray parameter
+        of the hit, (H, W) float32, inf where no plane is hit; with `img`,
+        each hit's texture value is written into it."""
         H, W = rig.height, rig.width
         d_c = ray_grid(rig) if rays is None else rays
         d_w = d_c @ R_cw.T
         o = c_w
 
         best_t = np.full((H, W), np.inf, dtype=np.float32)
-        img = np.full((H, W), 90.0, dtype=np.float32)
-
         planes = [
             (0, -self.half_w, 0),   # left wall   x = -hw, tex coords (z, y)
             (0, self.half_w, 1),    # right wall
@@ -195,14 +192,33 @@ class CorridorWorld:
                        (np.abs(p[..., 1]) <= self.half_h)
                 tu, tv = p[..., 0], p[..., 1]
             hit &= in_b & (t < best_t)
-            tex_val = self.tex[ti].sample(tu[hit], tv[hit])
-            img[hit] = 30.0 + 200.0 * tex_val
+            if img is not None:
+                tex_val = self.tex[ti].sample(tu[hit], tv[hit])
+                img[hit] = 30.0 + 200.0 * tex_val
             best_t[hit] = t[hit]
+        return best_t
 
+    def render(self, R_cw: np.ndarray, c_w: np.ndarray, rig: StereoRig,
+               noise_sigma: float = 1.5, rng=None, rays=None) -> np.ndarray:
+        """Render one grayscale image for camera with world-from-cam rotation
+        R_cw (3,3) and center c_w (3,). `rays`: the rig's `ray_grid`, when the
+        caller has it (it does not change between frames). Returns (H, W)
+        float32 in [0, 255]."""
+        img = np.full((rig.height, rig.width), 90.0, dtype=np.float32)
+        self._trace(R_cw, c_w, rig, rays, img=img)
         if noise_sigma > 0:
             rng = rng or np.random.default_rng(0)
             img = img + rng.normal(0, noise_sigma, img.shape).astype(np.float32)
         return np.clip(img, 0, 255).astype(np.float32)
+
+    def depth(self, R_cw: np.ndarray, c_w: np.ndarray, rig: StereoRig,
+              rays=None) -> np.ndarray:
+        """The z-depth of the surface `render` shows at each pixel, (H, W)
+        float32, 0 where no plane is hit: the depth map of an RGB-D camera
+        at this pose. The rays have z = 1 in the camera, so the ray
+        parameter of the first hit is its z-depth."""
+        t = self._trace(R_cw, c_w, rig, rays)
+        return np.where(np.isfinite(t), t, np.float32(0.0)).astype(np.float32)
 
 
 def corridor_pose_at(ts: np.ndarray, speed: float = 0.8, wiggle: float = 0.25):
@@ -270,6 +286,13 @@ def corridor_trajectory(n_frames: int, dt: float = 1.0 / 15.0,
     return list(R_cw.astype(np.float32)), list(c_w.astype(np.float32)), ts
 
 
+def _orbit_world(n_frames: int, period: float):
+    """bench.py's closed room and the left camera's 15 FPS orbit of radius
+    0.5 m in it: (world, R_cw list, c_w list, timestamps)."""
+    world = CorridorWorld(half_w=4.0, half_h=1.5, z0=-4.0, z1=4.0, back_wall=True)
+    return (world,) + orbit_trajectory(n_frames, dt=1.0 / 15.0, period=period, radius=0.5)
+
+
 def render_orbit_sequence(n_frames: int, rig: StereoRig | None = None,
                           seed: int = 0, period: float = 24.0):
     """bench.py's room-orbit sequence (bench.py:50-73): the closed room, the
@@ -278,8 +301,7 @@ def render_orbit_sequence(n_frames: int, rig: StereoRig | None = None,
 
     Returns (uint8 (n_frames, 2, H, W) stereo pairs, f64 timestamps, rig)."""
     rig = rig or StereoRig()
-    world = CorridorWorld(half_w=4.0, half_h=1.5, z0=-4.0, z1=4.0, back_wall=True)
-    R_l, c_l, ts = orbit_trajectory(n_frames, dt=1.0 / 15.0, period=period, radius=0.5)
+    world, R_l, c_l, ts = _orbit_world(n_frames, period)
     rng = np.random.default_rng(seed)
     rays = ray_grid(rig)
     imgs = np.zeros((n_frames, 2, rig.height, rig.width), np.uint8)
@@ -288,6 +310,17 @@ def render_orbit_sequence(n_frames: int, rig: StereoRig | None = None,
         imgs[i, 0] = world.render(R_l[i], c_l[i], rig, rng=rng, rays=rays).astype(np.uint8)
         imgs[i, 1] = world.render(R_l[i], c_r, rig, rng=rng, rays=rays).astype(np.uint8)
     return imgs, ts, rig
+
+
+def orbit_depth_maps(n_frames: int, rig: StereoRig | None = None,
+                     period: float = 24.0) -> np.ndarray:
+    """The depth maps of `render_orbit_sequence`'s left camera (an RGB-D
+    camera on the same orbit): (n_frames, H, W) float32, 0 where no plane
+    is hit."""
+    rig = rig or StereoRig()
+    world, R_l, c_l, _ = _orbit_world(n_frames, period)
+    rays = ray_grid(rig)
+    return np.stack([world.depth(R_l[i], c_l[i], rig, rays=rays) for i in range(n_frames)])
 
 
 def orbit_tracking_config(rig: StereoRig):

@@ -233,14 +233,27 @@ def essential_edges(m: ms.MapState, e_max: int = 1024, min_weight: float = 100.0
     return e_i, e_j, torch.cat([top_w > 0, tree_valid])
 
 
-def apply_pose_graph_result(m: ms.MapState, new_R, new_t, new_s, old_R, old_t):
+def apply_pose_graph_result(m: ms.MapState, new_R, new_t, new_s, old_R, old_t,
+                            scale_points: bool = False):
     """Write the corrected poses back (Sim3 -> SE3 with t / s, CorrectLoop
     LoopClosing.cc:1035) and re-anchor every landmark through its first
-    observer: p' = Tcw_new^-1 (Tcw_old p). In place; returns the map."""
+    observer, its point in that keyframe's camera taken through the
+    corrected Sim3's inverse: p' = S_new^-1 (Tcw_old p) = R^T (p_c / s -
+    t / s) (LoopClosing.cc:1005-1020), with `scale_points`; without it the
+    camera-frame point keeps its depth, p' = R^T (p_c - t / s), which is
+    the same where s is 1 (a scale-fixed closer). In place; returns the
+    map.
+
+    The reference's function (loop_closing.py:437-453) never divides by s,
+    so a free-scale (monocular) correction moves the keyframes to the new
+    scale and leaves their landmarks at the old one (ROADMAP queue 3);
+    `LoopCloser.correct` scales them when its scale is free."""
     se3_t = new_t / torch.clamp(new_s[:, None], min=1e-9)
     ref = torch.clamp(m.mp_first_kf, 0, m.max_kf - 1).long()
     has_ref = (m.mp_first_kf >= 0) & m.mp_valid
     p_cam = lie.se3_apply(old_R[ref], old_t[ref], m.mp_pos)
+    if scale_points:
+        p_cam = p_cam / torch.clamp(new_s[ref][:, None], min=1e-9)
     p_new = lie._matvec(new_R[ref].transpose(-1, -2), p_cam - se3_t[ref])
     h = has_ref.to(torch.float32)[:, None]
     m.mp_pos = h * p_new + (1.0 - h) * m.mp_pos
@@ -566,7 +579,8 @@ class LoopCloser:
         new_R, new_t, new_s = pose_graph.optimize_pose_graph(
             kf_R0, kf_t0, kf_s0, m.kf_valid, fixed, e_i, e_j, e_R, e_t, e_s,
             e_valid, mode=mode, n_iters=15)
-        m = apply_pose_graph_result(m, new_R, new_t, new_s, old_R, old_t)
+        m = apply_pose_graph_result(m, new_R, new_t, new_s, old_R, old_t,
+                                    scale_points=not self.fix_scale)
         oRc, oTc = old_R[kf_cur], old_t[kf_cur]
         self.last_delta = (oRc.T @ m.kf_R[kf_cur], oRc.T @ (m.kf_t[kf_cur] - oTc))
         return m

@@ -116,6 +116,16 @@ def extract_orb_stereo(img_pair: torch.Tensor, threshold: float,
     return feats
 
 
+def extract_orb_mono(img: torch.Tensor, threshold: float,
+                     max_kp: int = MAX_KP_DEFAULT,
+                     n_levels: int = pyramid.N_LEVELS) -> Features:
+    """One (H, W) image through `extract_orb_stereo` as a batch of one
+    (reference :174-186): Features with a leading eye axis of 1, kernel 1
+    in one launch over the image's levels. The monocular and RGB-D
+    trackers extract once per frame through it."""
+    return extract_orb_stereo(img[None], threshold, max_kp=max_kp, n_levels=n_levels)
+
+
 class ThresholdController:
     """Host-side dynamic FAST-threshold feedback loop (a copy of the
     reference's; orbslam_dsp_hwa_pipeline.h:15-19 regulates toward a target

@@ -19,13 +19,22 @@ a thread of its own); `shutdown` waits for their work and joins every
 thread. The tracker changes `cfg` on a raw rig (see `Tracker`), so each
 System takes its own `SlamConfig`.
 
+Monocular (`System(cfg, SENSOR_MONOCULAR).track_monocular(img, ts)`):
+two-view initialisation, then the tracker without depth; a loop is closed
+with a free-scale Sim(3). RGB-D (`System(cfg, SENSOR_RGBD).track_rgbd(img,
+depth_map, ts)`): one extraction per frame, the depth map read at the
+keypoints on the card, then the stereo tracker on virtual right
+coordinates. Every sensor goes through the tracker's own per-frame
+preamble (timestamp guards, compaction, the map lock); the reference's
+RGB-D path bypasses it (`_process_rgbd`, ROADMAP queue 3).
+
 The tracker's maps live in an Atlas: a lost map is archived and merged back
 on a revisit. `save_atlas` / `load_atlas` write and read it as the
 reference's npz file (`models/serialization.py`), so a file written by
 either package loads in the other.
 
 Not ported, each raising NotImplementedError with its ROADMAP item: the
-mono, RGB-D and inertial sensors.
+inertial sensors.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from .config import SlamConfig
 from .evaluation import save_trajectory_kitti, save_trajectory_tum
 from .device import on_device, to_host
 from .models.serialization import load_atlas, save_atlas
-from .tracking.tracker import LOST, RECENTLY_LOST, Tracker
+from .tracking.tracker import LOST, RECENTLY_LOST, SENSORS, Tracker
 from .utils.timing import Verbose
 
 SENSOR_MONOCULAR = "mono"
@@ -51,10 +60,8 @@ SENSOR_IMU_MONOCULAR = "imu_mono"
 SENSOR_IMU_STEREO = "imu_stereo"
 
 _UNPORTED_SENSORS = {
-    SENSOR_MONOCULAR: "mono (ROADMAP queue 1, item 7: mono)",
     SENSOR_IMU_MONOCULAR: "IMU (ROADMAP queue 1, item 7: IMU)",
     SENSOR_IMU_STEREO: "IMU (ROADMAP queue 1, item 7: IMU)",
-    SENSOR_RGBD: "the RGB-D path (ROADMAP queue 1, item 7: RGB-D)",
 }
 
 
@@ -73,7 +80,7 @@ class System:
                  device: torch.device | str = "cuda"):
         if sensor in _UNPORTED_SENSORS:
             _unported(f"sensor {sensor!r}: {_UNPORTED_SENSORS[sensor]}")
-        if sensor != SENSOR_STEREO:
+        if sensor not in SENSORS:
             raise ValueError(f"unknown sensor {sensor!r}")
         self.sensor = sensor
         cfg.use_imu = False
@@ -93,19 +100,29 @@ class System:
             self._consumer = threading.Thread(target=self._consume_loop, daemon=True)
             self._consumer.start()
 
-    # -- frame entry points (TrackStereo; the others raise) -------------------
+    # -- frame entry points (TrackStereo / TrackMonocular / TrackRGBD) ---------
     def track_stereo(self, img_pair: np.ndarray, ts: float, imu=None) -> dict:
         """A stereo pair (2, H, W) at time ts. Returns the tracker's result,
         or {"queued": True} with `use_pipeline`."""
-        if imu is not None:
-            _unported("IMU input (ROADMAP queue 1, item 7: IMU)")
-        return self._dispatch(img_pair, ts)
+        self._check_entry(SENSOR_STEREO, imu)
+        return self._dispatch((img_pair, None), ts)
 
     def track_monocular(self, img, ts: float, imu=None) -> dict:
-        _unported(_UNPORTED_SENSORS[SENSOR_MONOCULAR])
+        """One (H, W) image at time ts; as `track_stereo`."""
+        self._check_entry(SENSOR_MONOCULAR, imu)
+        return self._dispatch((img, None), ts)
 
     def track_rgbd(self, img, depth_map, ts: float) -> dict:
-        _unported(_UNPORTED_SENSORS[SENSOR_RGBD])
+        """One (H, W) image and its (H, W) depth map (0 where there is no
+        depth) at time ts; as `track_stereo`."""
+        self._check_entry(SENSOR_RGBD, None)
+        return self._dispatch((img, depth_map), ts)
+
+    def _check_entry(self, sensor: str, imu) -> None:
+        if imu is not None:
+            _unported("IMU input (ROADMAP queue 1, item 7: IMU)")
+        if sensor != self.sensor:
+            raise ValueError(f"a {sensor} frame given to a {self.sensor!r} System")
 
     def _dispatch(self, payload, ts) -> dict:
         if self._queue is None:
@@ -134,8 +151,9 @@ class System:
                     self._queue.task_done()
 
     def _process(self, payload, ts) -> dict:
+        img, depth_map = payload
         with self._lock:
-            return self.tracker.process_frame(payload, ts)
+            return self.tracker.process_frame(img, ts, depth_map=depth_map)
 
     # -- state (System.h:187-190) ---------------------------------------------
     def get_tracking_state(self) -> int:

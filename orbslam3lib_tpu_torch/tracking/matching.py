@@ -20,7 +20,7 @@ import torch
 from ..ops.cuda_matcher import knn_match_fused
 from ..ops.fast import topk_stable
 from ..ops.masks import BIG, is_finite_match, leq_int, penalize, step01
-from ..ops.matcher import hamming_matrix
+from ..ops.matcher import hamming_matrix, knn2
 from ..ops.orient_brief import gather_patches
 from ..ops.pyramid import level_shapes_on, scale_factors_on
 from ..utils import cameras, lie
@@ -296,6 +296,25 @@ def rotation_consistency(angle_a, angle_b_matched, ok):
     keep_bin = torch.zeros(lead + (HISTO_LENGTH,), dtype=torch.bool, device=b.device)
     keep_bin.scatter_(-1, top_i, top_v >= 0.1 * top_v[..., :1])
     return ok & torch.gather(keep_bin, -1, b)
+
+
+def match_for_initialization(xy_a, desc_a, valid_a, angle_a, xy_b, desc_b, valid_b,
+                             angle_b, window: float = 100.0, th: float = 50.0,
+                             ratio: float = 0.9):
+    """SearchForInitialization (ORBmatcher.cc:649; reference :350-368):
+    descriptor kNN-2 inside a `window`-pixel circle around each anchor
+    `xy_a` (the soft gate value kept, as everywhere), the `th` and Lowe
+    `ratio` gates, then the rotation-consistency histogram. Plain PyTorch
+    on every device: the reference computes it outside its kernels (the
+    plain `knn2`). Returns (idx (Na,) int32, -1 where rejected; ok (Na,))."""
+    d = hamming_matrix(desc_a, desc_b, valid_a, valid_b)
+    d2_spatial = torch.sum((xy_a[:, None, :] - xy_b[None, :, :]) ** 2, dim=-1)
+    dm = penalize(d, step01(window * window - d2_spatial + 1.0))
+    i1, d1, d2 = knn2(dm)
+    ok = valid_a & (d1 <= th) & (d1 <= ratio * d2)
+    ok = rotation_consistency(
+        angle_a, angle_b[torch.clamp(i1, 0, angle_b.shape[0] - 1).long()], ok)
+    return torch.where(ok, i1, -1).to(torch.int32), ok
 
 
 def match_descriptors_ratio(desc_a, valid_a, desc_b, valid_b,

@@ -1,8 +1,9 @@
-"""Stereo SLAM (port of the stereo paths of
-`orbslam3lib_tpu/tracking/tracker.py`): the synchronous tracker, the
-pipelined tracker of bench.py's `full_slam` mode (`pipeline`, `chunk`),
-the background mapper thread (`async_mapping`) and the asynchronous global
-BA (`cfg.mapping.async_gba`).
+"""Visual SLAM (port of the visual paths of
+`orbslam3lib_tpu/tracking/tracker.py`): the synchronous tracker for the
+stereo, monocular and RGB-D sensors, the pipelined stereo tracker of
+bench.py's `full_slam` mode (`pipeline`, `chunk`), the background mapper
+thread (`async_mapping`) and the asynchronous global BA
+(`cfg.mapping.async_gba`).
 
 Three stereo rigs are ported: rectified pinhole stereo; raw distorted
 stereo with `cfg.stereo.rectify` (radial-tangential or KB8 eyes, rectified
@@ -87,10 +88,26 @@ tests/test_torch_map_merge.py:
   name their maps by Atlas index, which only a merge changes (the merger
   counts the later archives down then), so they stay right after either.
 
+Monocular (`sensor="mono"`, reference :1295-1378): frames are one image,
+extracted as a batch of one (kernel 1 in one launch); there is no depth, so
+tracking runs on monocular observations only, a keyframe spawns no
+landmark (local mapping triangulates them) and its policy has no
+close-point condition; initialisation is two-view (`_initialize_mono`,
+`mapping/twoview.py`), its map scaled to median depth 1
+(`scene_median_depth`; the reference leaves it unscaled, ROADMAP queue 3),
+and a loop is closed with a free-scale Sim(3) whose scale the correction
+gives the landmarks too. RGB-D (`sensor="rgbd"`, the reference's
+`System._process_rgbd`): one image and a depth map per frame; the depth is
+read at the keypoints on the card and turned into virtual right
+coordinates, and the stereo tracker runs on them. Both run synchronously
+(the pipelined path is stereo's) and through the same per-frame preamble
+as stereo (timestamp guards, compaction, the map lock), which the
+reference's RGB-D path skips (ROADMAP queue 3).
+
 What this slice leaves out, each raising `NotImplementedError` that names
-its ROADMAP item where a configuration asks for it: mono, IMU (so no
-inertial dead reckoning while lost and no inertial merge) and the fixed
-local-BA window.
+its ROADMAP item where a configuration asks for it: IMU (so no inertial
+dead reckoning while lost and no inertial merge) and the fixed local-BA
+window.
 """
 from __future__ import annotations
 
@@ -108,15 +125,18 @@ import torch
 from ..config import CameraConfig, SlamConfig
 from ..device import get_device, on_device, to_device, to_host
 from ..mapping import local_mapping as lm_ops
+from ..mapping.local_mapping import _last_write
 from ..mapping.loop_closing import LoopCloser, MapMerger, mapper_step_fused
 from ..mapping.map_ba import inv_sigma2 as _inv_sigma2
 from ..mapping.map_ba import (global_bundle_adjust_auto, map_window_ba as _local_ba,
                               merge_gba_result)
+from ..mapping.twoview import reconstruct_two_views
 from ..models import map_state as ms
 from ..models.atlas import Atlas
 from ..models.vocabulary import (DEFAULT_VOCAB_PATH, bow_from_descriptors,
                                  load_vocabulary, train_vocabulary)
-from ..ops.extractor import Features, ThresholdController, extract_orb_stereo
+from ..ops.extractor import (Features, ThresholdController, extract_orb_mono,
+                             extract_orb_stereo)
 from ..ops.pyramid import scale_factors_on
 from ..utils import cameras, lie, rectify
 from ..utils.timing import StageTimer
@@ -295,6 +315,51 @@ def _insert_kf_and_spawn(m: ms.MapState, R, t, ts: float, feat_xy, feat_level,
     return m, kf_id
 
 
+def scene_median_depth(p3d: torch.Tensor, tri_ok: torch.Tensor) -> torch.Tensor:
+    """The median depth of the triangulated points (ORB-SLAM3's
+    ComputeSceneMedianDepth(2): the lower median), 1 when none is; a 0-d
+    tensor, no host read."""
+    z = torch.where(tri_ok, p3d[:, 2], torch.full_like(p3d[:, 2], float("nan")))
+    return torch.nan_to_num(torch.nanmedian(z), nan=1.0)
+
+
+def _mono_init_map(m: ms.MapState, ts0: float, ts1: float, f0, f1, match_idx, tri_ok,
+                   R21, t21, p3d, n_levels: int):
+    """The initial monocular map (CreateInitialMapMonocular, Tracking.cc:2604;
+    reference :400-444), in place: keyframe 0 at the identity with
+    features f0 = (xy, level, desc, valid, angle), keyframe 1 at (R21, t21)
+    with f1; landmarks at the triangulated points, bound to their features
+    in both. The two-view reconstruction is scaled to median depth 1
+    (`scene_median_depth`). Returns (m, keyframe 1's id, R21, t21 scaled)."""
+    xy0, lvl0, desc0, fv0, ang0 = f0
+    F = xy0.shape[0]
+    dev = xy0.device
+    inv_md = 1.0 / torch.clamp(scene_median_depth(p3d, tri_ok), min=1e-6)
+    p3d_n = p3d * inv_md
+    t21_n = t21 * inv_md
+    no_mp = torch.full((F,), -1, dtype=torch.int32, device=dev)
+    no_depth = torch.zeros(F, device=dev)
+    R0 = torch.eye(3, dtype=torch.float32, device=dev)
+    m, kf0 = ms.insert_keyframe(m, R0, torch.zeros(3, device=dev), ts0, xy0, lvl0, desc0,
+                                fv0, no_mp, no_depth, angle=ang0)
+    m, kf1 = ms.insert_keyframe(m, R21, t21_n, ts1, *f1[:4], no_mp, no_depth, angle=f1[4])
+    dist = torch.linalg.norm(p3d_n, dim=-1)
+    normal = p3d_n / torch.clamp(dist[:, None], min=1e-9)
+    sf = scale_factors_on(n_levels, dev)
+    max_dist = dist * sf[torch.clamp(lvl0, 0, n_levels - 1).long()]
+    min_dist = max_dist / sf[n_levels - 1]
+    ms.spawn_mappoints(m, kf0, p3d_n, desc0, normal, min_dist, max_dist, tri_ok,
+                       torch.arange(F, device=dev))
+    # keyframe 1's slot of each matched feature takes its landmark (the
+    # last writer where two features of keyframe 0 matched the same one)
+    bind = tri_ok & (match_idx >= 0)
+    src = _last_write(torch.where(bind, torch.clamp(match_idx, 0, F - 1), F), F)
+    new_ids = m.kf_mp[kf0][torch.clamp(src, min=0)]
+    row1 = m.kf_mp[kf1]
+    m.kf_mp[kf1] = torch.where((src >= 0) & (new_ids >= 0), new_ids, row1)
+    return m, kf1, R21, t21_n
+
+
 # the pipelined frame's scalar pack: [n_valid, n_inliers, n_close_tracked,
 # n_close_untracked, R (9), t (3)] (reference :209-211)
 PACK_LEN = 16
@@ -373,21 +438,33 @@ def _frame_step_chunk(m: ms.MapState, chain, imgs: List[torch.Tensor], threshold
     return carry[:6], carry[6], carry[7], outs
 
 
+SENSORS = ("stereo", "mono", "rgbd")
+
+
 def check_ported(cfg: SlamConfig, sensor: str) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for a sensor or
-    option the port does not have yet."""
-    if sensor != "stereo":
-        raise NotImplementedError(
-            f"sensor {sensor!r}: only stereo is ported (ROADMAP queue 1, item 7: "
-            "mono)")
+    option the port does not have yet (ValueError for an unknown sensor).
+    `rectify` and `fisheye` describe a stereo rig; mono and RGB-D ignore
+    them, as the reference does, and take an undistorted pinhole camera."""
+    if sensor not in SENSORS:
+        raise ValueError(f"unknown sensor {sensor!r}; the tracker takes {SENSORS}")
     if cfg.use_imu:
-        raise NotImplementedError("IMU is not ported (ROADMAP queue 1, item 7: IMU)")
-    if not (cfg.stereo.fisheye or cfg.stereo.rectify) \
+        raise NotImplementedError(
+            "IMU is not ported (ROADMAP queue 1, item 7: IMU)")
+    if sensor != "stereo" and cfg.camera.model_id != cameras.PINHOLE:
+        # the two-view reconstruction projects through the pinhole model
+        # (as the reference's, twoview.py:108), and the RGB-D virtual right
+        # coordinate u - bf / z assumes undistorted pixels
+        raise NotImplementedError(
+            f"the {sensor} sensor takes an undistorted pinhole camera (ROADMAP "
+            "queue 1, item 7: mono and RGB-D on a distorted camera)")
+    if sensor == "stereo" and not (cfg.stereo.fisheye or cfg.stereo.rectify) \
             and cfg.camera.model_id != cameras.PINHOLE:
         raise NotImplementedError(
             "a distorted stereo rig needs cfg.stereo.rectify or cfg.stereo.fisheye "
             "(ROADMAP queue 1, item 7: distorted rig without rectify or fisheye)")
-    if cfg.stereo.fisheye and cfg.camera.model_id != cameras.KANNALA_BRANDT:
+    if sensor == "stereo" and cfg.stereo.fisheye \
+            and cfg.camera.model_id != cameras.KANNALA_BRANDT:
         raise NotImplementedError(
             "the fisheye stereo path is the two-camera Kannala-Brandt rig "
             "(ROADMAP queue 1, item 7: distorted rig without rectify or fisheye)")
@@ -440,7 +517,8 @@ class _Chunk:
 
 
 class Tracker:
-    """Host-side state machine of stereo tracking.
+    """Host-side state machine of tracking; `sensor` is "stereo", "mono" or
+    "rgbd".
 
     `device` is where the map, the frames and all per-frame work live: the
     card by default, exactly as given otherwise (`device.get_device`, which
@@ -473,10 +551,11 @@ class Tracker:
         self.device = get_device(device)
         self.timer = StageTimer(enabled=enable_timing)
         self._remap = None
-        if cfg.stereo.rectify and not cfg.stereo.fisheye:
+        stereo = sensor == "stereo"
+        if stereo and cfg.stereo.rectify and not cfg.stereo.fisheye:
             self._setup_rectification()
         self._fisheye_rig = None
-        if cfg.stereo.fisheye:
+        if stereo and cfg.stereo.fisheye:
             cam2 = cfg.camera2 or cfg.camera
             R_lr, t_lr = cfg.stereo_extrinsics
             self._fisheye_rig = tuple(
@@ -525,6 +604,12 @@ class Tracker:
         # previous frame's bindings (feature slot -> landmark id) and angles
         self._prev_feat_mp: Optional[torch.Tensor] = None
         self._prev_feat_angle: Optional[torch.Tensor] = None
+        # monocular initialisation: the first frame of the attempt (map
+        # stamp, then its xy, level, desc, valid, angle) and the positions
+        # its features were last matched at (mvbPrevMatched, the centres of
+        # the next search windows)
+        self._init_frame: Optional[tuple] = None
+        self._init_prev_xy: Optional[torch.Tensor] = None
         # the pipelined path
         self.pipeline = int(pipeline)
         self.chunk = max(1, int(chunk))
@@ -596,12 +681,17 @@ class Tracker:
         return to_device(np.asarray(x, np.float32), self.device)
 
     # -- per-frame entry ----------------------------------------------------
-    def process_frame(self, img, ts: float) -> dict:
-        """img: (2, H, W) rectified stereo pair (uint8 or float32; numpy or
-        tensor). Returns {"state", "n_inliers", ...} for the frame; on the
-        pipelined path the state and inliers of the last consumed frame,
-        with "pipelined": True."""
+    def process_frame(self, img, ts: float, depth_map=None) -> dict:
+        """img (uint8 or float32; numpy or tensor): a (2, H, W) stereo pair
+        for the stereo sensor, an (H, W) or (1, H, W) image for mono and
+        RGB-D; `depth_map` (H, W), RGB-D only: the depth of each pixel, 0
+        where there is none. Returns {"state", "n_inliers", ...} for the
+        frame; on the pipelined path the state and inliers of the last
+        consumed frame, with "pipelined": True."""
         cfg = self.cfg
+        if (depth_map is not None) != (self.sensor == "rgbd"):
+            raise ValueError(f"sensor {self.sensor!r}: a depth map goes with RGB-D frames "
+                             "and only with them")
         # timestamp guards (Tracking.cc:1871-1909): a backwards step resets
         # the map, a gap over 1 s starts a new one
         if self._last_frame_ts is not None and self.state != NOT_INITIALIZED:
@@ -622,29 +712,38 @@ class Tracker:
             if not self._compact_map():
                 self._compact_backoff = self.frame_id + 64
 
-        # the pipelined path: steady-state tracking only; initialisation and
-        # a loss drain it and run synchronously (reference :805-810)
-        if self.pipeline > 1 and self.state == OK:
+        # the pipelined path: steady-state stereo tracking only;
+        # initialisation and a loss drain it and run synchronously
+        # (reference :805-810)
+        if self.pipeline > 1 and self.state == OK and self.sensor == "stereo":
             return self._process_frame_pipelined(img, ts)
         self._drain_pipeline()
 
         # no SAD refinement on the fisheye path (its rows are not epipolar)
-        want_canvas = cfg.stereo.sad_refine and not cfg.stereo.fisheye
+        want_canvas = self.sensor == "stereo" and cfg.stereo.sad_refine \
+            and not cfg.stereo.fisheye
         with self.timer.stage("extract"):
-            img_dev = torch.as_tensor(img, device=self.device)
-            if img_dev.dim() != 3 or img_dev.shape[0] != 2:
-                raise ValueError(f"expected a (2, H, W) stereo pair, got {tuple(img_dev.shape)}")
+            img_dev = self._frame_images(img)
             if self._remap is not None:
                 img_dev = self._remap(img_dev)
-            ex = extract_orb_stereo(
-                img_dev, float(np.float32(self.threshold.t)),
-                max_kp=cfg.orb.max_kp, n_levels=cfg.orb.n_levels,
-                return_canvas=want_canvas)
-            feats, canvas = ex if want_canvas else (ex, None)
+            thr = float(np.float32(self.threshold.t))
+            if self.sensor == "stereo":
+                ex = extract_orb_stereo(img_dev, thr, max_kp=cfg.orb.max_kp,
+                                        n_levels=cfg.orb.n_levels, return_canvas=want_canvas)
+                feats, canvas = ex if want_canvas else (ex, None)
+            else:
+                feats = extract_orb_mono(img_dev, thr, max_kp=cfg.orb.max_kp,
+                                         n_levels=cfg.orb.n_levels)
             self._timer_sync()
         bf, min_z = float(cfg.bf), float(cfg.stereo.min_z)
         with self.timer.stage("stereo_match"):
-            if self._fisheye_rig is not None:
+            if self.sensor == "mono":
+                # no depth: every observation is monocular (reference :850-854)
+                u_r = torch.full((cfg.orb.max_kp,), -1.0, device=self.device)
+                depth = torch.zeros(cfg.orb.max_kp, device=self.device)
+            elif self.sensor == "rgbd":
+                u_r, depth = self._rgbd_observations(feats, depth_map, img_dev.shape)
+            elif self._fisheye_rig is not None:
                 u_r, depth = matching.match_fisheye_stereo(
                     feats.xy[0], feats.desc[0], feats.valid[0],
                     feats.xy[1], feats.desc[1], feats.valid[1],
@@ -667,7 +766,10 @@ class Tracker:
         # reference's per-frame Map::mMutexMapUpdate, Tracking.cc:1939)
         with self._map_lock:
             if self.state == NOT_INITIALIZED:
-                out = self._initialize_stereo(feats, u_r, depth, ts, n_feat)
+                if self.sensor == "mono":
+                    out = self._initialize_mono(feats, ts, n_feat)
+                else:
+                    out = self._initialize_stereo(feats, u_r, depth, ts, n_feat)
             else:
                 with self.timer.stage("track"):
                     out = self._track(feats, u_r, depth, ts)
@@ -679,6 +781,49 @@ class Tracker:
                 R, t = self.pose
                 self.trajectory.append((ts, to_host(R), to_host(t)))
         return out
+
+    def _frame_images(self, img) -> torch.Tensor:
+        """The frame on the card: the (2, H, W) stereo pair, or the (H, W)
+        image of a mono or RGB-D frame (given as (H, W) or (1, H, W))."""
+        x = torch.as_tensor(img, device=self.device)
+        if self.sensor == "stereo":
+            if x.dim() != 3 or x.shape[0] != 2:
+                raise ValueError(f"sensor 'stereo': expected a (2, H, W) pair, got "
+                                 f"{tuple(x.shape)}")
+            return x
+        if x.dim() == 3 and x.shape[0] == 1:
+            x = x[0]
+        if x.dim() != 2:
+            raise ValueError(f"sensor {self.sensor!r}: expected an (H, W) or (1, H, W) "
+                             f"image, got {tuple(x.shape)}")
+        return x
+
+    def _rgbd_observations(self, feats: Features, depth_map, hw):
+        """RGB-D's stereo-equivalent observations (the reference's
+        `System._process_rgbd`, system.py:115-141; ORB-SLAM3's Frame RGB-D
+        ctor): the depth map (uploaded once per frame, from pinned memory)
+        read at each keypoint's truncated pixel, clipped to the image,
+        non-positive depths 0, and the virtual right coordinate
+        u - bf / max(z, 1e-3) where z > 0, else -1. All on the card, no
+        host read."""
+        H, W = hw
+        if tuple(depth_map.shape) != (H, W):
+            raise ValueError(f"depth map {tuple(depth_map.shape)} for an image of {(H, W)}")
+        if isinstance(depth_map, torch.Tensor):
+            dm = depth_map.to(self.device, torch.float32)
+        else:
+            dm = to_device(np.asarray(depth_map, np.float32), self.device)
+        xy = feats.xy[0]
+        xs = torch.clamp(xy[:, 0].to(torch.int64), 0, W - 1)
+        ys = torch.clamp(xy[:, 1].to(torch.int64), 0, H - 1)
+        z = dm[ys, xs]
+        z = torch.where(z > 0, z, torch.zeros_like(z))
+        # bf as a tensor: a Python number over a tensor is computed as the
+        # number times the reciprocal, which rounds otherwise than numpy's
+        # division
+        disparity = torch.full_like(z, float(self.cfg.bf)) / torch.clamp(z, min=1e-3)
+        u_r = torch.where(z > 0, xy[:, 0] - disparity, torch.full_like(z, -1.0))
+        return u_r, z
 
     def _timer_sync(self):
         """With timing on, a stage ends when the card has finished it."""
@@ -711,6 +856,13 @@ class Tracker:
             img_w=cfg.camera.width, img_h=cfg.camera.height,
             th_far=cfg.tracker.th_far_points)
         n_mp = int(self.map.n_mp)
+        self._post_init(kf_id, n_mp, feats)
+        return {"state": OK, "n_inliers": n_mp, "init": True}
+
+    def _post_init(self, kf_id: int, n_mp: int, feats: Features):
+        """Tracking starts on the initial map whose last keyframe is kf_id
+        (reference :1380-1394): OK, no velocity, kf_id the reference
+        keyframe and the only one added to the BoW database."""
         self._n_kf_host = int(self.map.n_kf)
         if self.pose is None:
             self.pose = self._eye_pose()
@@ -724,7 +876,65 @@ class Tracker:
         self._ensure_place_rec(feats.desc[0])
         self.place_rec.add(int(kf_id), self.map.kf_desc[int(kf_id)],
                            self.map.kf_feat_valid[int(kf_id)])
-        return {"state": OK, "n_inliers": n_mp, "init": True}
+
+    def _initialize_mono(self, feats: Features, ts, n_feat) -> dict:
+        """MonocularInitialization (Tracking.cc:2505; reference
+        :1295-1378). The first frame with at least 100 features anchors the
+        attempt; each later frame is matched to it inside 100-pixel windows
+        around where its features were last matched
+        (`matching.match_for_initialization`). Fewer than 100 matches
+        restart the attempt from this frame; otherwise the two views are
+        reconstructed (`mapping/twoview.py`) and, when that succeeds, the
+        initial map of two keyframes (`_mono_init_map`) is refined by 20
+        iterations of BA over both with the first fixed (Global BA in
+        CreateInitialMapMonocular). Reads back the match count, the
+        reconstruction's verdict, and after a success the map's counts."""
+        cfg = self.cfg
+        if n_feat < 100:
+            self._init_frame = None
+            return {"state": self.state, "n_inliers": 0}
+        if self._n_kf_host > 0:
+            # a loaded atlas: its current map is archived and tracking
+            # starts a map of its own (`load_atlas`)
+            self._spawn_new_map()
+        f = (feats.xy[0], feats.level[0], feats.desc[0], feats.valid[0], feats.angle[0])
+        cur = (self._rel_ts(ts),) + f
+        if self._init_frame is None:
+            self._init_frame = cur
+            self._init_prev_xy = f[0]
+            return {"state": self.state, "n_inliers": 0}
+        ts0, xy0, lvl0, desc0, fv0, ang0 = self._init_frame
+        idx, ok = matching.match_for_initialization(
+            self._init_prev_xy, desc0, fv0, ang0, f[0], f[2], f[3], f[4],
+            window=100.0, th=50.0, ratio=0.9)
+        if int(torch.sum(ok.to(torch.int32))) < 100:
+            # too few matches: the attempt restarts from this frame
+            self._init_frame = cur
+            self._init_prev_xy = f[0]
+            return {"state": self.state, "n_inliers": 0}
+        F = xy0.shape[0]
+        uv2 = f[0][torch.clamp(idx, 0, F - 1).long()]
+        self._init_prev_xy = torch.where(ok[:, None], uv2, self._init_prev_xy)
+        out = reconstruct_two_views(xy0, uv2, ok, self.cam_params)
+        if not bool(out["success"]):
+            return {"state": self.state, "n_inliers": 0}
+        self.map, kf1, R, t = _mono_init_map(
+            self.map, ts0, cur[0], self._init_frame[1:], f, idx, out["tri_ok"] & ok,
+            out["R"], out["t"], out["p3d"], n_levels=cfg.orb.n_levels)
+        self.pose = (R, t)
+        self._post_init(kf1, int(self.map.n_mp), feats)
+        ids = np.full(cfg.ba.window_size + cfg.ba.n_fixed, -1, np.int32)
+        ids[:2] = kf1 - 1, kf1
+        fixed = np.zeros(len(ids), bool)
+        fixed[0] = True
+        self.map = _local_ba(self.map, to_device(ids, self.device),
+                             to_device(fixed, self.device), self.cam_params, float(cfg.bf),
+                             cam_model=cfg.camera.model_id,
+                             n_ba_points=cfg.ba.max_points, n_iters=20)
+        self.pose = (self.map.kf_R[kf1].clone(), self.map.kf_t[kf1].clone())
+        self._init_frame = None
+        self._init_prev_xy = None
+        return {"state": OK, "n_inliers": int(self.map.n_mp), "init": True}
 
     # -- per-frame tracking -------------------------------------------------
     def _track_args(self) -> dict:
@@ -888,7 +1098,8 @@ class Tracker:
             self.place_rec = make_place_recognition(self.place_rec.voc, self.cfg.map.max_kf)
             if self.loop_closer is not None:
                 n_loops = self.loop_closer.n_loops
-                self.loop_closer = LoopCloser(self.cfg, self.place_rec, fix_scale=True)
+                self.loop_closer = LoopCloser(self.cfg, self.place_rec,
+                                              fix_scale=self.sensor != "mono")
                 self.loop_closer.n_loops = n_loops
         self.state = NOT_INITIALIZED
         self.pose = None
@@ -900,6 +1111,8 @@ class Tracker:
         self._ts_origin = None
         self._prev_feat_mp = None
         self._prev_feat_angle = None
+        self._init_frame = None
+        self._init_prev_xy = None
 
     def load_atlas(self, atlas: Atlas):
         """Continue from a loaded Atlas (`System.load_atlas`). The pipeline
@@ -966,8 +1179,9 @@ class Tracker:
                                    n_close_untracked, frame_id) -> bool:
         """NeedNewKeyFrame from pre-reduced scalars (reference
         :1209-1235). With the mapper thread, c1b needs it idle, and a busy
-        mapper takes a stereo keyframe only while fewer than 3 wait
-        (Tracking.cc: KeyframesInQueue() < 3)."""
+        mapper takes a stereo or RGB-D keyframe only while fewer than 3 wait
+        (Tracking.cc: KeyframesInQueue() < 3). Monocular: no close-point
+        condition c1c, the inlier ratio 0.9 and no short-queue acceptance."""
         cfg = self.cfg
         if self._n_kf_host >= self.map.max_kf - 1:
             return False
@@ -976,12 +1190,13 @@ class Tracker:
         frames_since = frame_id - self.last_kf_frame
         c1a = frames_since >= cfg.tracker.max_frames_between_kf
         c1b = frames_since >= max(cfg.tracker.min_frames_between_kf, 1) and mapper_idle
-        c1c = (n_close_tracked < cfg.tracker.close_tracked_th
-               and n_close_untracked > cfg.tracker.close_untracked_th)
-        c2 = (n_inliers < cfg.tracker.kf_ref_ratio * max(self.ref_kf_matches, 1)
-              and n_inliers > 15)
+        depth = self.sensor != "mono"
+        c1c = depth and (n_close_tracked < cfg.tracker.close_tracked_th
+                         and n_close_untracked > cfg.tracker.close_untracked_th)
+        ratio = cfg.tracker.kf_ref_ratio if depth else 0.9
+        c2 = n_inliers < ratio * max(self.ref_kf_matches, 1) and n_inliers > 15
         want = bool(((c1a or c1b or c1c) and c2) or (c1c and c1b))
-        if want and not mapper_idle:
+        if want and not mapper_idle and depth:
             want = q.unfinished_tasks < 3
         return want
 
@@ -990,10 +1205,14 @@ class Tracker:
         cfg = self.cfg
         R, t = self.pose
         zeros3 = torch.zeros(3, dtype=torch.float32, device=self.device)
+        # monocular keyframes spawn no landmark (their depths are 0 anyway):
+        # new ones come from local mapping's triangulation
+        close_depth = -1.0 if self.sensor == "mono" else \
+            float(cfg.stereo.depth_factor * cfg.stereo.baseline)
         self.map, kf_id = _insert_kf_and_spawn(
             self.map, R, t, self._rel_ts(ts), feats.xy[0], feats.level[0],
             feats.desc[0], feats.valid[0], u_r, depth, mp_feat,
-            self.cam_params, float(cfg.stereo.depth_factor * cfg.stereo.baseline),
+            self.cam_params, close_depth,
             cam_model=cfg.camera.model_id, n_levels=cfg.orb.n_levels,
             v=self.frame_state_v, bg=zeros3, ba=zeros3, angle=feats.angle[0],
             img_w=cfg.camera.width, img_h=cfg.camera.height,
@@ -1153,8 +1372,10 @@ class Tracker:
             voc = train_vocabulary(np.concatenate([d, extra]), k=8, depth=3).to(self.device)
         self.place_rec = make_place_recognition(voc, self.cfg.map.max_kf)
         if self.enable_loop_closing:
-            # stereo: depth fixes the scale (reference :655-657)
-            self.loop_closer = LoopCloser(self.cfg, self.place_rec, fix_scale=True)
+            # stereo and RGB-D: depth fixes the scale; monocular loops
+            # solve a free-scale Sim(3) (reference :655-657)
+            self.loop_closer = LoopCloser(self.cfg, self.place_rec,
+                                          fix_scale=self.sensor != "mono")
             if self.map_merger is None:
                 self.map_merger = MapMerger(self.cfg)
 

@@ -4,7 +4,8 @@ BA), relocalisation, the rectifying remap, the fisheye matcher, `System`
 on a raw radtan and a KB8 rig, compaction and the pipelined tracker on the
 card against the same on the CPU; a chunk's dispatch without a host sync;
 the mapper and GBA threads on the card; the cross-map match, the map merge
-and an atlas round trip on the card (marker
+and an atlas round trip on the card; kernel 1 at batch 1 and `System` with
+the monocular and the RGB-D sensor on the card against the CPU (marker
 `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
@@ -136,50 +137,102 @@ def test_slice_with_back_end_on_card_matches_cpu(cuda_device):
                                rtol=0, atol=5e-3)
 
 
-def _ring_on(dev):
+def _ring_on(dev, arrays=None):
     from orbslam3lib_tpu_torch.models import map_state as ms
     from orbslam3lib_tpu_torch.models import vocabulary as vb
     from orbslam3lib_tpu_torch.tracking.reloc import PlaceRecognition
-    arrays, _, descs = ring_world()
+    world, _, descs = ring_world()
     voc = vb.train_vocabulary(descs, k=4, depth=3).to(dev)
-    m = ms.from_numpy(arrays, device=dev)
+    m = ms.from_numpy(world if arrays is None else arrays, device=dev)
     pr = PlaceRecognition(voc, m.max_kf)
     for i in range(13):
         pr.add(i, m.kf_desc[i], m.kf_feat_valid[i])
     return m, pr
 
 
+def _ring_arrays(shrink: float, depth: bool):
+    """The ring world, its revisit (keyframe 12 and its landmarks) shrunk
+    about the revisit's camera by `shrink` (tests/test_torch_loop_scale.py's
+    drift); without `depth`, no feature carries a stereo depth (a
+    monocular map)."""
+    arrays, _, _ = ring_world()
+    R, t = arrays["kf_R"][12], arrays["kf_t"][12]
+    c = -R.T @ t
+    own = arrays["mp_valid"] & (arrays["mp_first_kf"] == 12)
+    arrays["mp_pos"][own] = c + shrink * (arrays["mp_pos"][own] - c)
+    arrays["kf_depth"][12] *= shrink
+    if not depth:
+        arrays["kf_depth"][:] = 0.0
+    return arrays
+
+
+# (revisit shrink, stereo depths, fixed scale): the stereo tracker's loop
+# closer on the ring world as drawn (scale fixed), and the monocular
+# tracker's (free scale, no depths) on it as drawn and with its revisit
+# shrunk to 0.8. A free scale on a map with stereo depths is no sensor's
+# setting: its pose-graph scales (0.987-1.0 on the ring world) move the
+# landmarks off their keyframes' measured depths, and the global BA there
+# carries a 1e-6 relative move of the landmarks to 1.3e-4 rad of keyframe
+# rotation on the CPU alone (tools/card_divergence.py; PERF.md section 7).
+LOOP_WORLDS = {"stereo": (1.0, True, True), "mono": (1.0, False, False),
+               "mono_drifted": (0.8, False, False)}
+# after the global BA, card against CPU: the stereo map's, and the
+# monocular maps' (their landmarks fixed by triangulation alone, with the
+# scale free, where the card's own runs spread: over 38 runs of the leg
+# against one CPU run, up to 2.7e-5 rad, 2.4e-4 and 1.7e-3 m; this test's
+# own runs up to 1.25e-4 rad; tools/card_divergence.py --loop-repeats,
+# NVIDIA H100 80GB HBM3, 700 W)
+GBA_TOL = {True: {"kf_R": 1e-4, "kf_t": 1e-4, "mp_pos": 1e-4},
+           False: {"kf_R": 5e-4, "kf_t": 1e-3, "mp_pos": 5e-3}}
+
+
 @pytest.mark.cuda
-def test_loop_verification_and_correction_on_card_match_cpu(cuda_device):
+@pytest.mark.parametrize("world", sorted(LOOP_WORLDS))
+def test_loop_verification_and_correction_on_card_match_cpu(cuda_device, world):
     """The ring world's loop (tests/test_torch_loop.py), probed, verified
     and corrected with the global BA on the card and on the CPU, the
     RANSACs on the same draws: the probe pack and the verification counts
-    equal, the Sim3 within 1e-4, corrected poses and landmarks within 1e-4;
-    kernel 2 ran on the card (probe and verification)."""
+    equal, the Sim3 within 1e-4, the corrected poses and landmarks within
+    5e-5 before the global BA (observed 5.7e-6) and within `GBA_TOL`
+    after it; kernel 2 ran on the card (probe and verification). Free
+    scale: the Sim3's scale finds the revisit's (1 or 0.8) within 1e-3."""
     from orbslam3lib_tpu_torch.mapping import loop_closing as lc
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    shrink, depth, fix_scale = LOOP_WORLDS[world]
+    arrays = _ring_arrays(shrink, depth)
+    fields = ("kf_R", "kf_t", "mp_pos")
     out = {}
-    with host_ransac_draws():
+    with host_ransac_draws(), pytest.MonkeyPatch.context() as mp:
+        gba = lc.global_bundle_adjust
+        corrected = []
+        mp.setattr(lc, "global_bundle_adjust", lambda m, *a, **k: corrected.append(
+            {f: getattr(m, f).cpu().numpy().copy() for f in fields}) or gba(m, *a, **k))
         for dev in ("cpu", cuda_device):
-            m, pr = _ring_on(dev)
+            m, pr = _ring_on(dev, arrays)
             cam = torch.from_numpy(RING_CAM).to(dev)
             voc = pr.voc
             before = cuda_matcher.launches
             probe = lc.loop_probe(m, pr.bow_db, pr.active, voc.centroids, voc.idf, 12,
                                   k=voc.k, depth=voc.depth, prev_cand=-1).cpu().numpy()
-            closer = lc.LoopCloser(SlamConfig(), pr, consistency_needed=1)
+            closer = lc.LoopCloser(SlamConfig(), pr, consistency_needed=1,
+                                   fix_scale=fix_scale)
             m = closer.on_probe_result(m, 12, probe, cam)
             out[str(dev)] = (probe, closer, m, cuda_matcher.launches - before)
     (p_c, c_c, m_c, _), (p_g, c_g, m_g, n_launch) = out["cpu"], out[str(cuda_device)]
     assert n_launch >= 2
     np.testing.assert_array_equal(p_g[[0, 1, 2, 6, 7, 8, 10]], p_c[[0, 1, 2, 6, 7, 8, 10]])
     np.testing.assert_allclose(p_g, p_c, rtol=0, atol=1e-6)
-    assert c_g.n_loops == c_c.n_loops == 1
+    assert c_g.n_loops == c_c.n_loops == 1 and len(corrected) == 2
     pg, pc = c_g.last_verification[2], c_c.last_verification[2]
     np.testing.assert_array_equal(pg[:5], pc[:5])
     np.testing.assert_allclose(pg[5:], pc[5:], rtol=0, atol=1e-4)
-    for f in ("kf_R", "kf_t", "mp_pos"):
+    if not fix_scale:
+        assert abs(pc[17] - shrink) < 1e-3
+    for f in fields:
+        np.testing.assert_allclose(corrected[1][f], corrected[0][f], rtol=0, atol=5e-5,
+                                   err_msg=f"{f} before the global BA")
         np.testing.assert_allclose(getattr(m_g, f).cpu().numpy(), getattr(m_c, f).numpy(),
-                                   rtol=0, atol=1e-4, err_msg=f)
+                                   rtol=0, atol=GBA_TOL[depth][f], err_msg=f)
 
 
 @pytest.mark.cuda
@@ -550,3 +603,155 @@ def test_atlas_round_trip_from_card(cuda_device, tmp_path):
         for k in ms.FIELDS:
             assert getattr(a, k).device.type == "cuda"
             assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+@pytest.mark.cuda
+def test_fast_levels_kernel_at_batch_one_on_card(cuda_device):
+    """Kernel 1 on one rendered 640x400 image's 8 levels in one launch (the
+    monocular and RGB-D frame), each level bit-exact."""
+    from orbslam3lib_tpu_torch.io.synthetic import render_orbit_sequence
+    from orbslam3lib_tpu_torch.ops import pyramid
+    imgs, _, _ = render_orbit_sequence(1)
+    levels = pyramid.build_pyramid(torch.as_tensor(imgs[0][:1], device=cuda_device), 8)
+    before = cuda_fast.launches
+    got = cuda_fast.fast_scores_nms_levels(levels, DETECT_MARGIN)
+    torch.cuda.synchronize()
+    assert cuda_fast.launches == before + 1
+    for out, lvl in zip(got, levels):
+        assert out.shape == lvl.shape
+        assert torch.equal(out, cuda_fast.fast_scores_nms_plain(lvl, DETECT_MARGIN))
+
+
+def _mono_config(rig):
+    """tests/test_torch_mono.py's corridor configuration."""
+    cfg = SlamConfig()
+    cfg.map.max_kf, cfg.map.max_mp = 64, 4096
+    cfg.orb.max_kp, cfg.orb.target_features, cfg.orb.fast_threshold = 384, 300, 12.0
+    cfg.tracker.min_init_features = 150
+    cfg.ba.max_points, cfg.ba.window_size = 1024, 6
+    cfg.camera.fx, cfg.camera.fy = rig.fx, rig.fy
+    cfg.camera.cx, cfg.camera.cy = rig.cx, rig.cy
+    cfg.camera.width, cfg.camera.height = rig.width, rig.height
+    cfg.stereo.baseline = rig.baseline
+    return cfg
+
+
+def _mono_init_on(dev, frames, rig):
+    """`System.track_monocular` over `frames` until it initialises, the
+    two-view RANSAC on host draws: (the outputs of the reconstruction that
+    initialised, the initial map's (kf_t, mp_pos, mp_valid) before and
+    after its BA, the initialisation frame), all on the host."""
+    from orbslam3lib_tpu_torch.system import System
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    got = {}
+
+    def keep(name, real, pick, last=False):
+        def f(*a, **k):
+            out = real(*a, **k)
+            if last or name not in got:
+                got[name] = pick(out)
+            return out
+        return f
+
+    def snap(m):
+        return {k: getattr(m, k).cpu().numpy().copy() for k in ("kf_t", "mp_pos", "mp_valid")}
+
+    with host_ransac_draws(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttr, "reconstruct_two_views",
+                   keep("recon", ttr.reconstruct_two_views,
+                        lambda o: {k: v.cpu().numpy() for k, v in o.items()}, last=True))
+        mp.setattr(ttr, "_mono_init_map",
+                   keep("pre", ttr._mono_init_map, lambda o: snap(o[0])))
+        # the BA after `_mono_init_map` is the initial map's
+        mp.setattr(ttr, "_local_ba", keep("post", ttr._local_ba, snap))
+        s = System(_mono_config(rig), "mono", device=dev, enable_loop_closing=False)
+        for i, (pair, _, stamp) in enumerate(frames):
+            if s.track_monocular(pair[0], stamp)["state"] == 1:
+                got["frame"] = i
+                break
+        s.shutdown()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [5, 6, 7, 8])
+def test_mono_initial_map_on_card_matches_cpu(cuda_device, seed):
+    """The corridor's monocular initialisation (render seed `seed`) on the
+    card and on the CPU, on the same host draws, compared without any
+    alignment: the same frame, good-point count and mask; R and t within
+    1e-4; the triangulated points, and the initial map (median depth 1)
+    before its 20-iteration BA, within 1e-3 of their depth; after it the
+    landmarks within 5e-3 and keyframe 1's translation within 1e-4.
+    Observed on render seeds 5-12: R and t 9.4e-6, points 4.4e-4 of their
+    depth, 1.0e-3 after the BA, keyframe 1 1.5e-6 (tools/card_divergence.py;
+    NVIDIA H100 80GB HBM3, 700 W). Earlier attempts that fail the
+    acceptance rule may differ by a point at a gate (66 and 67 good points
+    on seed 6's first)."""
+    from orbslam3lib_tpu_torch.io.synthetic import render_stereo_sequence
+    frames, rig, _ = render_stereo_sequence(n_frames=8, dt=1.0 / 15.0, seed=seed)
+    cpu, card = (_mono_init_on(d, frames, rig) for d in ("cpu", cuda_device))
+    assert card["frame"] == cpu["frame"]
+    rc, rg = cpu["recon"], card["recon"]
+    assert int(rg["n_good"]) == int(rc["n_good"])
+    np.testing.assert_array_equal(rg["tri_ok"], rc["tri_ok"])
+    np.testing.assert_allclose(rg["R"], rc["R"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(rg["t"], rc["t"], rtol=0, atol=1e-4)
+    ok = rc["tri_ok"]
+    err = np.abs(rg["p3d"][ok] - rc["p3d"][ok]).max(axis=1) / rc["p3d"][ok, 2]
+    assert err.max() < 1e-3, err.max()
+    for stage in ("pre", "post"):
+        v = cpu[stage]["mp_valid"]
+        assert np.array_equal(card[stage]["mp_valid"], v)
+        pg, pc = card[stage]["mp_pos"][v], cpu[stage]["mp_pos"][v]
+        if stage == "pre":
+            err = np.abs(pg - pc).max(axis=1) / pc[:, 2]
+            assert err.max() < 1e-3, err.max()
+        else:
+            np.testing.assert_allclose(pg, pc, rtol=0, atol=5e-3)
+        np.testing.assert_allclose(np.median(pg[:, 2]), np.median(pc[:, 2]), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(card["post"]["kf_t"][1], cpu["post"]["kf_t"][1],
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mono_system_on_card_matches_cpu(cuda_device):
+    """20 frames of the corridor through `System.track_monocular` on the
+    card and on the CPU, the two-view RANSAC on the same (host) draws: the
+    same initialisation frame and states, the same keyframes, and the
+    camera centres, with no alignment, within 1e-4 (the initial map is
+    scaled to median depth 1). Observed on render seeds 5-12: at most
+    8.6e-6 (tools/card_divergence.py; NVIDIA H100 80GB HBM3, 700 W)."""
+    from orbslam3lib_tpu_torch.io.synthetic import render_stereo_sequence
+    from orbslam3lib_tpu_torch.system import System
+    frames, rig, _ = render_stereo_sequence(n_frames=20, dt=1.0 / 15.0, seed=5)
+    with host_ransac_draws():
+        systems = [System(_mono_config(rig), "mono", device=d, enable_loop_closing=False)
+                   for d in ("cpu", cuda_device)]
+        out = [[s.track_monocular(pair[0], stamp)["state"] for pair, _, stamp in frames]
+               for s in systems]
+    cpu, card = systems
+    assert out[1] == out[0] and out[0][-1] == 1
+    assert card.get_stats()["n_kf"] == cpu.get_stats()["n_kf"]
+    np.testing.assert_allclose(card.tracker.trajectory_centers(),
+                               cpu.tracker.trajectory_centers(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rgbd_system_on_card_matches_cpu(cuda_device):
+    """16 frames of the small orbit with their depth maps through
+    `System.track_rgbd` on the card and on the CPU: the same counts, camera
+    centres within 5 mm."""
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_depth_maps
+    from orbslam3lib_tpu_torch.system import System
+    imgs, ts, rig = orbit_frames(16)
+    depths = orbit_depth_maps(16, rig)
+    systems = [System(backend_config(SlamConfig, rig), "rgbd", device=d,
+                      enable_loop_closing=False) for d in ("cpu", cuda_device)]
+    for img, d, stamp in zip(imgs[:, 0], depths, ts):
+        for s in systems:
+            s.track_rgbd(img, d, float(stamp))
+    cpu, card = systems
+    assert card.get_stats() == cpu.get_stats()
+    assert card.get_tracking_state() == cpu.get_tracking_state() == 1
+    np.testing.assert_allclose(card.tracker.trajectory_centers(),
+                               cpu.tracker.trajectory_centers(), rtol=0, atol=5e-3)

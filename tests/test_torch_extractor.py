@@ -1,6 +1,7 @@
 """ORB extraction of the port against the JAX reference: the pyramid, and
 `extract_orb_stereo` end to end (FAST+NMS, tile and global top-K,
-orientation, rotated BRIEF), on the same rendered stereo pair."""
+orientation, rotated BRIEF), on the same rendered stereo pair; and
+`extract_orb_mono` (one image, the monocular and RGB-D frame)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -98,6 +99,27 @@ def test_extractor_keypoints_agree(both_extractions, eye):
                                   np.asarray(fj.score[eye])[ij[lvl0]])
     agree = (ft.desc[eye].numpy()[it] == np.asarray(fj.desc[eye])[ij]).mean()
     assert agree >= 0.999, agree
+
+
+def test_extract_orb_mono(fast_reference_brief):
+    """One image: the stereo extractor's graph on a batch of one (its
+    fields equal the left eye's of `extract_orb_stereo` on that image
+    alone), with the reference's leading eye axis of 1, dtypes, and level-0
+    keypoints equal as sets."""
+    imgs, _, _ = orbit_frames(2)
+    img = imgs[1][0]
+    ft = tex.extract_orb_mono(torch.from_numpy(img), 12.0, max_kp=256, n_levels=4)
+    fs = tex.extract_orb_stereo(torch.from_numpy(img[None]), 12.0, max_kp=256, n_levels=4)
+    fj = jex.extract_orb_mono(jnp.asarray(img), jnp.float32(12.0), max_kp=256, n_levels=4)
+    for name in ("xy", "level", "score", "angle", "desc", "valid"):
+        g, w = getattr(ft, name), np.asarray(getattr(fj, name))
+        assert tuple(g.shape) == w.shape and g.shape[0] == 1, name
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), name
+        assert torch.equal(g, getattr(fs, name)), name
+    kj = _keyed(np.asarray(fj.level[0]), np.asarray(fj.xy[0]), np.asarray(fj.valid[0]))
+    kt = _keyed(ft.level[0].numpy(), ft.xy[0].numpy(), ft.valid[0].numpy())
+    assert len(kj) > 100
+    assert {k for k in kj if k[0] == 0} == {k for k in kt if k[0] == 0}
 
 
 def test_threshold_controller_is_the_reference_one():

@@ -35,7 +35,7 @@ from orbslam3lib_tpu_torch.tracking.reloc import PlaceRecognition as TPR  # noqa
 from torch_parity import (RING_CAM as CAM, fast_reference_brief,  # noqa: E402,F401
                           reference_backend_snapshots, reference_draws,
                           reference_ransac_draws, reference_single_device_gba,
-                          ring_world)
+                          reference_unscaled_points, ring_world)
 
 KW = dict(cam_model=0, img_w=640, img_h=400, n_levels=8)
 
@@ -133,7 +133,11 @@ def test_loop_closer_closes_the_loop(ring, inertial):
     (essential graph and landmark re-anchoring) and run the global BA; the
     corrected poses and landmarks agree and the drift shrinks. Inertial
     (the gates of LoopClosing.cc:144-163 and the 4-DoF graph): both take
-    the same decision, and agree as above when they correct."""
+    the same decision, and agree as above when they correct. The closers'
+    scale is free here (their default), so the port runs with the
+    reference's unscaled landmark correction put back
+    (`torch_parity.reference_unscaled_points`; the fault is held in
+    test_torch_loop_scale.py)."""
     m, true, descs = ring
     jv = jvb.train_vocabulary(descs, k=4, depth=3)
     tv = tvb.Vocabulary(centroids=tuple(t(c) for c in jv.centroids), idf=t(jv.idf),
@@ -152,7 +156,7 @@ def test_loop_closer_closes_the_loop(ring, inertial):
     jlcr.inertial = tlcr.inertial = inertial
     with reference_single_device_gba():
         want = jlcr.on_probe_result(jm, LAST, pack, jnp.asarray(CAM))
-    with reference_ransac_draws():
+    with reference_ransac_draws(), reference_unscaled_points():
         got = tlcr.on_probe_result(tms.from_numpy(m), LAST, pack, t(CAM))
     assert tlcr.n_loops == jlcr.n_loops
     assert tlcr.consistency_count == jlcr.consistency_count

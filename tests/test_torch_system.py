@@ -8,6 +8,7 @@ the same frames in both; the sensors and options not ported raise
 NotImplementedError, and the ported background mapper and asynchronous
 global BA run; the PNG writer, the map render and the PLY export
 give the same bytes as the reference's `viz` for the same map arrays;
+mono and RGB-D build and track through their entry points;
 `save_atlas` writes the reference's file (each package loads the other's),
 and what each package does after `load_atlas`."""
 import os
@@ -153,18 +154,35 @@ def test_pipeline_drops_on_backpressure(sequence, fast_reference_brief):
 
 @pytest.mark.parametrize("sensor", [tsys.SENSOR_MONOCULAR, tsys.SENSOR_RGBD,
                                     tsys.SENSOR_IMU_MONOCULAR, tsys.SENSOR_IMU_STEREO])
-def test_unported_sensors_raise(sensor):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsys.System(TCfg(), sensor, device="cpu")
+def test_unported_sensors_raise(sensor, sequence):
+    """The inertial sensors raise, naming their ROADMAP item; mono and
+    RGB-D (which raised before they were ported) build and track frames
+    through their entry points."""
+    if sensor in (tsys.SENSOR_IMU_MONOCULAR, tsys.SENSOR_IMU_STEREO):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tsys.System(TCfg(), sensor, device="cpu")
+        return
+    frames, rig, _ = sequence
+    s = tsys.System(small_cfg(TCfg, rig), sensor, enable_loop_closing=False, device="cpu")
+    for pair, _, stamp in frames[:6]:
+        if sensor == tsys.SENSOR_MONOCULAR:
+            s.track_monocular(pair[0], stamp)
+        else:
+            s.track_rgbd(pair[0], np.full(pair[0].shape, 4.0, np.float32), stamp)
+    s.shutdown()
+    assert s.get_stats()["n_frames"] == 6
+    assert s.get_tracking_state() == OK
 
 
 def test_unported_options_raise(sequence):
+    """IMU input raises, naming its ROADMAP item; a monocular frame given
+    to a stereo System is refused."""
     _, rig, _ = sequence
     s = tsys.System(small_cfg(TCfg, rig), device="cpu")
-    for call in (lambda: s.track_monocular(np.zeros((8, 8)), 0.0),
-                 lambda: s.track_stereo(np.zeros((2, 8, 8)), 0.0, imu=(0, 0, 0))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        s.track_stereo(np.zeros((2, 8, 8)), 0.0, imu=(0, 0, 0))
+    with pytest.raises(ValueError, match="stereo"):
+        s.track_monocular(np.zeros((8, 8)), 0.0)
 
 
 def test_background_mapping_runs(systems, sequence):
@@ -230,10 +248,13 @@ def test_viz_bytes_agree(systems, tmp_path):
 
 def _unported_cfg(case):
     cfg = TCfg()
-    if case == "imu":
+    if case in ("imu", "mono_imu"):
         cfg.use_imu = True
-    elif case == "radtan_unrectified":
+    elif case in ("radtan_unrectified", "mono_radtan", "rgbd_radtan"):
         cfg.camera.dist = (-0.28, 0.07, 0.0, 0.0, 0.0)
+    elif case == "mono_kb8":
+        cfg.camera.model = "kannala_brandt8"
+        cfg.camera.k = (0.02, -0.01, 0.003, 0.0)
     elif case == "fisheye_pinhole":
         cfg.stereo.fisheye = True
     elif case == "fixed_ba_window":
@@ -241,13 +262,13 @@ def _unported_cfg(case):
     return cfg
 
 
-@pytest.mark.parametrize("case", ["mono", "imu", "radtan_unrectified", "fisheye_pinhole",
-                                  "fixed_ba_window"])
+@pytest.mark.parametrize("case", ["mono_imu", "imu", "radtan_unrectified", "fisheye_pinhole",
+                                  "fixed_ba_window", "mono_radtan", "mono_kb8", "rgbd_radtan"])
 def test_tracker_unported_configurations_raise(case):
     """Every configuration the port does not have raises, naming its ROADMAP
     item, before anything runs."""
     from orbslam3lib_tpu_torch.tracking.tracker import Tracker
-    sensor = "mono" if case == "mono" else "stereo"
+    sensor = case.split("_")[0] if case.startswith(("mono", "rgbd")) else "stereo"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Tracker(_unported_cfg(case), sensor, device="cpu")
 

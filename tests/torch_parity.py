@@ -141,11 +141,12 @@ def reference_draws(valid, n_hyp: int, size: int, seed: int = 0) -> np.ndarray:
 
 @contextlib.contextmanager
 def ransac_draws(draw):
-    """The port's RANSACs (`pnp_ransac`, `sim3_ransac`) take their
-    hypotheses from `draw(valid_numpy, n_hyp, size, seed)` (numpy indices)
-    in place of their sampler, on any device."""
+    """The port's RANSACs (`pnp_ransac`, `sim3_ransac`,
+    `reconstruct_two_views`) take their hypotheses from
+    `draw(valid_numpy, n_hyp, size, seed)` (numpy indices) in place of their
+    sampler, on any device."""
     import torch
-    from orbslam3lib_tpu_torch.mapping import sim3 as tsim
+    from orbslam3lib_tpu_torch.mapping import sim3 as tsim, twoview as ttv
     from orbslam3lib_tpu_torch.tracking import reloc as treloc
 
     def draws(valid, n_hyp, size, seed=0, hyp_idx=None):
@@ -154,14 +155,15 @@ def ransac_draws(draw):
         return torch.as_tensor(np.asarray(hyp_idx), device=valid.device).long()
 
     with pytest.MonkeyPatch.context() as mp:
-        for mod in (tsim, treloc):
+        for mod in (tsim, treloc, ttv):
             mp.setattr(mod, "ransac_indices", draws)
         yield
 
 
 def reference_ransac_draws():
     """Whole runs of both packages see the same RANSAC samples: the port
-    draws the reference's (`reference_draws`)."""
+    draws the reference's (`reference_draws`; the reference's two-view
+    RANSAC draws with the same `jax.random.choice` call, twoview.py:120)."""
     return ransac_draws(reference_draws)
 
 
@@ -182,6 +184,20 @@ def reference_single_device_gba():
     from orbslam3lib_tpu.mapping import map_ba as jmb
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jmb, "global_bundle_adjust_auto", jmb.global_bundle_adjust)
+        yield
+
+
+@contextlib.contextmanager
+def reference_unscaled_points():
+    """The port's loop correction leaves each landmark's depth in its
+    keyframe as it was, as the reference's `apply_pose_graph_result`
+    (loop_closing.py:437-453) does: the port divides it by the corrected
+    Sim(3)'s scale when the closer's scale is free (ROADMAP queue 3)."""
+    from orbslam3lib_tpu_torch.mapping import loop_closing as tlc
+    real = tlc.apply_pose_graph_result
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlc, "apply_pose_graph_result",
+                   lambda *a, scale_points=False: real(*a, scale_points=False))
         yield
 
 

@@ -8,6 +8,8 @@ machine).
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase radtan --frames 400
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase production
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase multimap
+    JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase mono [--median-depth]
+    JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase rgbd
 
 Phases (frames rendered by the port's numpy renderer, the same frames the
 smoke feeds the port; bench.py's configuration: 640x400, 512 keypoints, 8
@@ -47,6 +49,24 @@ levels, 2x2 pose iterations, loop closing on, `pipeline=0`):
            the map merger welds A into B. Prints the spawn and merge frames,
            the maps' keyframe counts, the merged map's keyframe ATE (A's
            keyframes in B's world) and each map's trajectory ATE.
+  mono     phase O: the left images of the pinhole orbit's first 130
+           frames (the reference loses track at frame 130) through
+           `Tracker(cfg, "mono")` (loop closing on, so a loop would run the
+           free-scale Sim(3)), with the wrong motion prior of phase 3 before
+           frame 100, which takes the TrackReferenceKeyFrame fallback
+           (`--frames 400` without it: where it loses track). Prints the initialisation frame, the points
+           triangulated there and their median depth (the reference's
+           `_mono_init_map` means to scale it to 1 but reads a NaN median,
+           so its map keeps the two-view unit baseline), the keyframes,
+           failures, the Sim(3)-aligned ATE and each loop's scale. With
+           `--median-depth` the initial map is scaled to median depth 1 as
+           intended (the lower median of the triangulated depths, as
+           ORB-SLAM3's ComputeSceneMedianDepth(2)), for the comparison
+           that decides which of the two the port carries.
+  rgbd     phase R: the left images of the pinhole orbit's first 180
+           frames with the depth maps of `io.synthetic.orbit_depth_maps`
+           through the reference's `System(cfg, "rgbd").track_rgbd`, with
+           the wrong motion prior before frame 150.
 Prints one JSON line per phase: trajectory and keyframe ATE (m, SE(3)
 aligned to the analytic orbit), keyframes, loops and their pairs, the loop
 frame, failures and (compact) compactions; production also the windows,
@@ -69,12 +89,16 @@ sys.path.insert(0, ROOT)
 DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
 KB8_K = (0.02, -0.01, 0.003, 0.0)
 DEFAULT_FRAMES = {"pinhole": 400, "radtan": 400, "kb8": 180, "compact": 150,
-                  "production": 376, "multimap": 400}
+                  "production": 376, "multimap": 400, "mono": 130, "rgbd": 180}
 # bench.py's full_slam protocol (bench.py:39-42)
 N_POPULATE, N_WARM, N_WINDOWS, N_WINDOW = 240, 16, 3, 40
 JOLT_FRAME = 370
 JOLT_PRIOR = ((0.0, 0.2, 0.0), (0.3, 0.0, 0.0))
 KIDNAP_BACK = 180
+# phase O's wrong motion prior (chip_smoke.py's MONO_JOLT_FRAME): kernel 2
+# in the TrackReferenceKeyFrame fallback
+MONO_JOLT_FRAME = 100
+RGBD_JOLT_FRAME = 150   # phase R's (chip_smoke.py's RGBD_JOLT_FRAME)
 # phase M's grey window (chip_smoke.py's MULTIMAP_GREY)
 GREY_START, GREY_LEN = 180, 80
 
@@ -128,10 +152,19 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--grey-start", type=int, default=GREY_START,
                     help="multimap: the first grey frame")
+    ap.add_argument("--median-depth", action="store_true",
+                    help="mono: scale the initial map to median depth 1")
+    ap.add_argument("--corridor", action="store_true",
+                    help="mono: tests/test_slam_modes.py's corridor (seed 5) "
+                         "instead of the orbit")
     args = ap.parse_args()
     n = args.frames or DEFAULT_FRAMES[args.phase]
     if args.phase == "production":
         return production()
+    if args.phase == "mono":
+        return mono(n, args.median_depth, args.corridor)
+    if args.phase == "rgbd":
+        return rgbd(n)
     if args.phase == "multimap":
         return multimap(n, args.grey_start)
 
@@ -373,6 +406,149 @@ def multimap(n: int, grey_start: int) -> int:
            "track_fail": tr.stats["track_fail"], "state": int(tr.state),
            **multimap_report(arrays, origins, ev["spawn"], ev["merge"], trajectory,
                              states)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def mono_frames(n: int, corridor: bool):
+    """Phase O's left images, stamps and the analytic camera centre at a
+    stamp: the orbit's, or tests/test_slam_modes.py's corridor (seed 5)."""
+    from orbslam3lib_tpu_torch.io import synthetic as syn
+    if corridor:
+        frames, _, _ = syn.render_stereo_sequence(n, syn.StereoRig(), seed=5)
+        imgs = np.stack([f[0][0] for f in frames])
+        ts = np.array([f[2] for f in frames])
+        return imgs, ts, lambda t: syn.corridor_pose_at(t)[1]
+    imgs, ts, _ = syn.render_orbit_sequence(n, syn.StereoRig())
+    return imgs[:, 0], ts, lambda t: syn.orbit_pose_at(t, period=24.0, radius=0.5)[1]
+
+
+def mono(n: int, median_depth: bool, corridor: bool) -> int:
+    """Phase O on the JAX reference (see the module docstring)."""
+    import jax.numpy as jnp
+    from orbslam3lib_tpu.config import SlamConfig
+    from orbslam3lib_tpu.tracking import reloc as jreloc
+    from orbslam3lib_tpu.utils import lie
+    from orbslam3lib_tpu.mapping import loop_closing as jlc
+    from orbslam3lib_tpu.tracking import tracker as jtr
+    from orbslam3lib_tpu_torch.evaluation import ate_rmse
+    from orbslam3lib_tpu_torch.io.synthetic import StereoRig
+
+    t0 = time.time()
+    imgs, ts, centre_at = mono_frames(n, corridor)
+    render_s = time.time() - t0
+    cfg = bench_config(SlamConfig, StereoRig())
+    inits, loops = [], []
+    real_init = jtr._mono_init_map
+
+    def init_logged(m, *a, **k):
+        tri_ok, t21, p3d = np.asarray(a[13]), a[15], a[16]
+        z = np.asarray(p3d)[:, 2][tri_ok]
+        med = float(np.sort(z)[(len(z) - 1) // 2]) if len(z) else 1.0
+        inits.append({"n_tri": int(tri_ok.sum()), "median_depth": med,
+                      "t21_norm": float(np.linalg.norm(np.asarray(t21)))})
+        if median_depth:
+            a = list(a)
+            a[15], a[16] = t21 / med, p3d / med
+        return real_init(m, *a, **k)
+
+    real_correct = jlc.LoopCloser.correct
+
+    def correct_logged(self, m, kf_cur, kf_loop, S12):
+        loops.append({"frame": frame[0], "kf": [int(kf_loop), int(kf_cur)],
+                      "s": float(np.asarray(S12[2]))})
+        return real_correct(self, m, kf_cur, kf_loop, S12)
+
+    jtr._mono_init_map = init_logged
+    jlc.LoopCloser.correct = correct_logged
+    tr = jtr.Tracker(cfg, "mono", enable_loop_closing=True, pipeline=0)
+    frame = [0]
+    states, init_frame = [], None
+    jolt = lie.so3_exp(jnp.asarray(JOLT_PRIOR[0], jnp.float32)), \
+        jnp.asarray(JOLT_PRIOR[1], jnp.float32)
+    fallbacks = [0]
+    real_ref = jreloc.track_reference_kf
+
+    def ref_counted(*a, **k):
+        fallbacks[0] += 1
+        return real_ref(*a, **k)
+
+    jreloc.track_reference_kf = ref_counted
+    t1 = time.time()
+    for i in range(n):
+        frame[0] = i
+        if i == MONO_JOLT_FRAME and n <= DEFAULT_FRAMES["mono"]:
+            tr.vel = jolt
+        states.append(int(tr.process_frame(imgs[i], float(ts[i]))["state"]))
+        if init_frame is None and states[-1] == jtr.OK:
+            init_frame = i
+    run_s = time.time() - t1
+    traj = tr.trajectory_centers()
+    gt = centre_at(np.asarray([f[0] for f in tr.trajectory]))
+    m = tr.map
+    v = np.asarray(m.kf_valid)
+    out = {"phase": "mono", "frames": n, "median_depth_fix": median_depth,
+           "sequence": "corridor" if corridor else "orbit",
+           "render_s": round(render_s, 1), "run_s": round(run_s, 1),
+           "init_frame": init_frame, "inits": inits,
+           "ate_sim3_m": ate_rmse(traj, gt, with_scale=True) if len(traj) >= 3 else None,
+           "trajectory_frames": len(traj), "n_kf_created": tr.stats["n_kf"],
+           "n_kf_alive": int(v.sum()), "n_mp": int(m.n_mp),
+           "n_loops": tr.stats["n_loops"], "loops": loops,
+           "loop_edges": [list(map(int, e)) for e in tr.loop_closer.loop_edges],
+           "track_fail": tr.stats["track_fail"], "n_reloc": tr.stats["n_reloc"],
+           "ref_kf_fallbacks": fallbacks[0],
+           "n_resets": tr.stats["n_resets"], "n_new_maps": tr.stats["n_new_maps"],
+           "state": int(tr.state),
+           "first_fail": next((i for i, s in enumerate(states)
+                               if init_frame is not None and i > init_frame and s != jtr.OK),
+                              None)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def rgbd(n: int) -> int:
+    """Phase R on the JAX reference (see the module docstring)."""
+    import jax.numpy as jnp
+    from orbslam3lib_tpu import system as jsys
+    from orbslam3lib_tpu.utils import lie
+    from orbslam3lib_tpu.config import SlamConfig
+    from orbslam3lib_tpu_torch.evaluation import ate_rmse
+    from orbslam3lib_tpu_torch.io.synthetic import (StereoRig, orbit_depth_maps,
+                                                    orbit_pose_at, render_orbit_sequence)
+
+    t0 = time.time()
+    imgs, ts, rig = render_orbit_sequence(n, StereoRig())
+    depths = orbit_depth_maps(n, rig)
+    render_s = time.time() - t0
+    cfg = bench_config(SlamConfig, rig)
+    s = jsys.System(cfg, jsys.SENSOR_RGBD, enable_loop_closing=True)
+    tr = s.tracker
+    states = []
+    jolt = lie.so3_exp(jnp.asarray(JOLT_PRIOR[0], jnp.float32)), \
+        jnp.asarray(JOLT_PRIOR[1], jnp.float32)
+    t1 = time.time()
+    for i in range(n):
+        if i == RGBD_JOLT_FRAME:
+            tr.vel = jolt
+        states.append(int(s.track_rgbd(imgs[i, 0], depths[i], float(ts[i]))["state"]))
+    run_s = time.time() - t1
+    traj = tr.trajectory_centers()
+    t_traj = np.asarray([f[0] for f in tr.trajectory])
+    gt = orbit_pose_at(t_traj, period=24.0, radius=0.5)[1]
+    m = tr.map
+    v = np.asarray(m.kf_valid)
+    R, t = np.asarray(m.kf_R)[v], np.asarray(m.kf_t)[v]
+    kts = np.asarray(m.kf_ts)[v].astype(np.float64) + tr._ts_origin
+    kf_ate = ate_rmse(-np.einsum("kji,kj->ki", R, t),
+                      orbit_pose_at(kts, period=24.0, radius=0.5)[1])
+    s.shutdown()
+    out = {"phase": "rgbd", "frames": n, "render_s": round(render_s, 1),
+           "run_s": round(run_s, 1), "ate_m": ate_rmse(traj, gt), "kf_ate_m": kf_ate,
+           "trajectory_frames": len(traj), "n_kf_created": tr.stats["n_kf"],
+           "n_kf_alive": int(v.sum()), "n_mp": int(m.n_mp),
+           "n_loops": tr.stats["n_loops"], "track_fail": tr.stats["track_fail"],
+           "state": int(tr.state), "states_ok": all(x == 1 for x in states)}
     print(json.dumps(out), flush=True)
     return 0
 
