@@ -131,10 +131,33 @@ Phases, each fatal on failure:
      --phase rgbd): state OK, no failure, keyframes within +-2, the ATE
      within x 1.5 + 5 mm, kernel 1 once per frame, kernel 2 at least once,
      no host sync in the depth gather.
-  Phases 4-10 each reset the launch counters just before their frames and
+ 11. I, stereo-inertial: the corridor of tests/test_slam_modes.py (seed 5,
+     640x400), N_IMU frames at 15 FPS, with frames IMU_GREY flat grey
+     (their stamps kept), through `System(cfg, "imu_stereo").track_stereo(
+     pair, ts, imu=(gyro, acc, dts))` at bench.py's configuration with loop
+     closing on; the IMU is `io.synthetic.corridor_imu_stream` (200 Hz,
+     cfg.imu's noise, the constant biases IMU_BG / IMU_BA, one seeded
+     generator). The tracker initialises the IMU, runs VIBA1 and VIBA2,
+     dead-reckons over the grey frames (keyframes inserted while lost) and
+     picks tracking up again; before frame IMU_JOLT_FRAME the IMU state's
+     velocity is off by IMU_JOLT_V, so that frame takes the
+     TrackReferenceKeyFrame fallback (kernel 2). Checks against the
+     reference's run of the same frames and IMU (REF_IMU,
+     tools/reference_smoke.py --phase imu): the initialisation frame within
+     +-2, VIBA1 and VIBA2 run, the same failures (the grey frames), state OK
+     at the end, keyframes within +-2, the ATEs (trajectory and keyframes)
+     and the grey frames' largest error within x 1.5 + 5 mm, the bias
+     estimates (the median of the keyframes' VI-BA biases since the
+     initialisation) within 20% + 1e-3 and the last frame's inside the
+     reference's last 30 frames' range, kernel 1 once per frame and kernel
+     2 at least once, finite poses. Printed: ms per frame, host ms and launches
+     per `feed_imu`, device ms and host syncs of the per-frame inertial
+     solves, ms of each VI window, of the IMU initialisation and of
+     VIBA1 / VIBA2, and the peak device memory.
+  Phases 4-11 each reset the launch counters just before their frames and
   read them just after; each kernel must launch on each of them (counts in
   the kernels line, `launches_by_path`). The sequences and the depth maps
-  render in four processes started before the card is used. Kernel 1 is
+  render in five processes started before the card is used. Kernel 1 is
   also checked bit-exact and timed at batch 1 (one image's 8 levels, the
   mono and RGB-D frame: `batch1` in its row).
 
@@ -245,6 +268,34 @@ MONO_INIT_TOL = 12
 REF_RGBD = {"n_kf": 13, "ate_m": 0.040180}
 N_RGBD = 180
 RGBD_JOLT_FRAME = 150
+
+# Phase I: the corridor, its grey frames (first, count), the frame whose
+# IMU velocity is off by IMU_JOLT_V (m/s; searched on the reference: 1.5
+# and 3 m/s are absorbed by the two-stage search, 10 m/s sends the frame
+# and the five after it, up to the next keyframe, through the fallback, 20
+# m/s one frame but moves the bias estimates by 0.03 m/s^2), and the IMU's
+# constant biases. The JAX reference on the CPU on these frames and IMU
+# (tools/reference_smoke.py --phase imu): the IMU initialised at frame 23,
+# VIBA1 at 103, VIBA2 at 250; 8 failures (the grey frames), fallbacks on
+# frames 130-135 and 160-167, no relocalisation; 43 keyframes made; ATE
+# 0.015090 m, keyframe ATE 0.009070 m, the grey frames' largest error
+# 0.036231 m (SE(3)-aligned). The bias estimates: the median of the
+# keyframes' VI-BA biases from the initialisation on (the IMU's biases are
+# constant), and the range of one frame's estimate over the last 30 frames
+# ((min, max) per component of bg then ba), which swings by +-0.1 m/s^2;
+# the median is over 36 keyframes (the true biases: IMU_BG, IMU_BA).
+N_IMU = 300
+IMU_GREY = (160, 8)
+IMU_JOLT_FRAME = 130
+IMU_JOLT_V = (10.0, 0.0, 0.0)
+IMU_BG = (0.002, -0.001, 0.0015)
+IMU_BA = (0.02, -0.01, 0.015)
+REF_IMU = {"imu_init_frame": 23, "viba1_frame": 103, "viba2_frame": 250, "track_fail": 8,
+           "n_kf": 43, "ate_m": 0.015090, "kf_ate_m": 0.009070, "grey_err_m": 0.036231,
+           "kf_bias_g": (0.002129, -0.001333, 0.001427),
+           "kf_bias_a": (-0.048151, -0.008799, -0.024098),
+           "bias_range": ((-0.002167, 0.010571), (-0.007692, 0.004262), (-0.003441, 0.005558),
+                          (-0.145872, 0.110124), (-0.155021, 0.063183), (-0.093491, 0.085171))}
 
 FAST_SHAPES = [(400, 640), (320, 512), (240, 384), (196, 314), (160, 256),
                (127, 203), (101, 161), (80, 128)]
@@ -1172,6 +1223,186 @@ def phase_rgbd(dev, imgs, ts, depths, rig):
     return checks, launches
 
 
+def render_imu(n: int):
+    """Phase I's frames (f32 stereo pairs, the grey window applied), stamps
+    and IMU stream (numpy only; runs in a worker process)."""
+    from orbslam3lib_tpu_torch.config import ImuConfig
+    from orbslam3lib_tpu_torch.io import synthetic as syn
+    t0 = time.perf_counter()
+    frames, _, _ = syn.render_stereo_sequence(n, syn.StereoRig(), seed=5)
+    imgs = np.stack([f[0] for f in frames])
+    imgs[IMU_GREY[0]:IMU_GREY[0] + IMU_GREY[1]] = 128.0
+    ts = np.array([f[2] for f in frames])
+    ci = ImuConfig()
+    imu = syn.corridor_imu_stream(ts, ci.noise_gyro, ci.noise_acc, ci.freq,
+                                  bg=IMU_BG, ba=IMU_BA, seed=0)
+    return imgs, ts, imu, time.perf_counter() - t0
+
+
+class PeakTimer(StepTimer):
+    """A StepTimer that also keeps each call's peak device memory (the
+    allocator's count, read on the host without waiting) and a label
+    (the VI window's size)."""
+
+    def __init__(self, fn, label=None):
+        super().__init__(fn)
+        self.peaks, self.labels, self.label = [], [], label
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        out = super().__call__(*args, **kwargs)
+        self.peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+        self.labels.append(self.label(*args, **kwargs) if self.label else None)
+        return out
+
+
+def feed_imu_launches(tr, sample) -> dict:
+    """Kernel and graph launches per `feed_imu` (cudaLaunchKernel and
+    cudaGraphLaunch calls), counted by torch.profiler over 5 calls on the
+    phase's tracker after its frames."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(5):
+            tr.feed_imu(*sample)
+        torch.cuda.synchronize()
+    return {k: sum(e.count for e in prof.key_averages() if e.key == k) / 5
+            for k in ("cudaLaunchKernel", "cudaGraphLaunch")}
+
+
+def phase_imu(dev, imgs, ts, imu):
+    """Phase I: stereo-inertial SLAM through `System.track_stereo`."""
+    from orbslam3lib_tpu_torch.device import card_line
+    from orbslam3lib_tpu_torch.evaluation import imu_report
+    from orbslam3lib_tpu_torch.io.synthetic import StereoRig, orbit_tracking_config
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
+    from orbslam3lib_tpu_torch.system import System
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    sys_ = System(orbit_tracking_config(StereoRig()), "imu_stereo", device=dev)
+    tr = sys_.tracker
+    solve = StepTimer(tr._inertial_refine)
+    vi = PeakTimer(ttr.local_inertial_ba, label=lambda m, ids, *a, **k: int(ids.shape[0]))
+    init = StepTimer(tr._initialize_imu)
+    full = StepTimer(tr._run_full_inertial_ba)
+    feed = tr.feed_imu
+    feed_ms = []
+
+    def feed_timed(*a):
+        t0 = time.perf_counter()
+        feed(*a)
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+
+    saved = ttr.local_inertial_ba
+    ttr.local_inertial_ba = vi
+    tr._initialize_imu, tr._run_full_inertial_ba, tr.feed_imu = init, full, feed_timed
+    tr._inertial_refine = solve
+    ev = {"imu_init_frame": None, "viba1_frame": None, "viba2_frame": None}
+    jolt = torch.tensor(IMU_JOLT_V, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_fast.reset_count()
+    cuda_matcher.reset_count()
+    results, frame_ms, fallback_frames = [], [], []
+    try:
+        for i in range(N_IMU):
+            if i == IMU_JOLT_FRAME:
+                tr.frame_state_v = tr.frame_state_v + jolt
+            n_fb = tr.stats["ref_kf_fallbacks"]
+            t0 = time.perf_counter()
+            results.append(sys_.track_stereo(imgs[i], float(ts[i]), imu=imu[i]))
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if tr.stats["ref_kf_fallbacks"] > n_fb:
+                fallback_frames.append(i)
+            for key, hit in (("imu_init_frame", tr.imu_ready), ("viba1_frame", tr._viba_stage >= 1),
+                             ("viba2_frame", tr._viba_stage >= 2)):
+                if ev[key] is None and hit:
+                    ev[key] = i
+        launches = {"fast_scores_nms": cuda_fast.launches,
+                    "knn_match_fused": cuda_matcher.launches}
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        feed_launches = feed_imu_launches(tr, imu[1])
+    finally:
+        ttr.local_inertial_ba = saved
+    st = sys_.get_stats()
+    m = tr.map
+    arrays = tuple(x.cpu().numpy() for x in (m.kf_valid, m.kf_R, m.kf_t, m.kf_ts))
+    grey = range(IMU_GREY[0], IMU_GREY[0] + IMU_GREY[1])
+    rep = imu_report(tr.trajectory, arrays, tr._ts_origin, ts[list(grey)],
+                     (m.kf_bg.cpu().numpy(), m.kf_ba.cpu().numpy()), tr._imu_init_ts)
+    bg, ba = (x.cpu().numpy().astype(np.float64) for x in tr.imu_bias)
+    sys_.shutdown()
+    ref = REF_IMU
+    states = [int(r["state"]) for r in results]
+    fail_frames = [i for i, s_ in enumerate(states) if s_ != 1]
+    centres = tr.trajectory_centers()
+    n_solves, solve_syncs = len(solve.events), len(solve.syncs)
+    graphs = {n: (len(g.graphs), list(g.eager.values())) for n, g in
+              (("anchor", tr._solve_anchor), ("prior", tr._solve_prior))}
+    vi_by_c = {}
+    for c, ms_, pk in zip(vi.labels, vi.ms(), vi.peaks):
+        vi_by_c.setdefault(c, []).append((ms_, pk))
+    full_ms = full.ms()
+    card = card_line()
+    log(f"[smoke] I (stereo-inertial; {card}): {N_IMU} frames, median "
+        f"{np.median(frame_ms):.2f} ms, "
+        f"p90 {np.percentile(frame_ms, 90):.2f} ms per frame; events {ev} (reference "
+        f"{ref['imu_init_frame']}, {ref['viba1_frame']}, {ref['viba2_frame']}); failures "
+        f"{fail_frames}; fallbacks on {fallback_frames}; KFs {st['n_kf']} made (reference "
+        f"{ref['n_kf']}), relocalisations {st['n_reloc']}, loops {st['n_loops']}; {rep}; "
+        f"the last frame's bias g {bg.round(6).tolist()}, a {ba.round(6).tolist()} (the "
+        f"reference's over its last 30 frames: {list(ref['bias_range'])}); the keyframes' "
+        f"median bias g {np.round(rep['kf_bias_g'], 6).tolist()} (reference "
+        f"{list(ref['kf_bias_g'])}), a {np.round(rep['kf_bias_a'], 6).tolist()} (reference "
+        f"{list(ref['kf_bias_a'])}); launches {launches}")
+    print(f"I imu ({card}): median {np.median(frame_ms):.2f} ms, p90 "
+          f"{np.percentile(frame_ms, 90):.2f} ms "
+          f"per frame; feed_imu host ms median {np.median(feed_ms):.3f}, p90 "
+          f"{np.percentile(feed_ms, 90):.3f} over {len(feed_ms)}, launches per call "
+          f"{feed_launches} (graphs captured {len(tr._integrate_pair.graphs)}, eager "
+          f"{list(tr._integrate_pair.eager.values())}); per-frame inertial solve (`_inertial_refine`, the graph's input "
+          f"copies, replay and output clones), device ms (CUDA events): "
+          + stage_line("solve", solve.ms())
+          + f"; host syncs {solve_syncs} over {n_solves} solves (CUDA graphs captured, eager "
+          f"fallbacks: {graphs}); VI windows (C keyframes: "
+          + "; ".join(f"C={c}: " + stage_line("device ms", [x for x, _ in v])
+                      + f", peak {max(p for _, p in v):.1f} MiB" for c, v in sorted(vi_by_c.items()))
+          + f"); _initialize_imu {stage_line('device ms', init.ms())}; VIBA1 "
+          f"{full_ms[0] if full_ms else float('nan'):.2f} ms, VIBA2 "
+          f"{full_ms[1] if len(full_ms) > 1 else float('nan'):.2f} ms (CUDA events); peak device "
+          f"memory {peak_mb:.1f} MiB")
+
+    def near(a, b):
+        return all(abs(x - y) <= 0.2 * abs(y) + 1e-3 for x, y in zip(a, b))
+
+    checks = {
+        "I: IMU initialisation frame within 2 of the reference's":
+            ev["imu_init_frame"] is not None
+            and abs(ev["imu_init_frame"] - ref["imu_init_frame"]) <= 2,
+        "I: VIBA1 and VIBA2 ran": ev["viba1_frame"] is not None
+            and ev["viba2_frame"] is not None and len(full_ms) == 2,
+        "I: the reference's failures (the grey frames)":
+            st["track_fail"] == ref["track_fail"] and fail_frames == list(grey),
+        "I: state OK at the end": states[-1] == 1 and int(tr.state) == 1,
+        "I: keyframes within 2 of the reference's": abs(st["n_kf"] - ref["n_kf"]) <= 2,
+        "I: the jolted frame took the fallback and tracked":
+            IMU_JOLT_FRAME in fallback_frames and states[IMU_JOLT_FRAME] == 1,
+        "I: ATE within the reference's bound": ate_within(rep["ate_m"], ref["ate_m"]),
+        "I: keyframe ATE within the reference's bound":
+            rep["kf_ate_m"] is not None and ate_within(rep["kf_ate_m"], ref["kf_ate_m"]),
+        "I: the grey frames' error within the reference's bound":
+            rep["grey_err_m"] is not None and ate_within(rep["grey_err_m"], ref["grey_err_m"]),
+        "I: bias estimates (the keyframes' median) within 20% + 1e-3 of the reference's":
+            near(rep["kf_bias_g"], ref["kf_bias_g"]) and near(rep["kf_bias_a"], ref["kf_bias_a"]),
+        "I: the last frame's bias inside the reference's last 30 frames' range":
+            all(lo <= x <= hi for x, (lo, hi) in zip(np.concatenate([bg, ba]),
+                                                     ref["bias_range"])),
+        "I: kernel 1 once per frame": launches["fast_scores_nms"] == N_IMU,
+        "I: kernel 2 launched": launches["knn_match_fused"] >= 1,
+        "I: finite poses": len(centres) == N_IMU and bool(np.isfinite(centres).all()),
+    }
+    return checks, launches
+
+
 def render_depths(n: int):
     """Phase R's depth maps (numpy only; runs in a worker process)."""
     from orbslam3lib_tpu_torch.io.synthetic import StereoRig, orbit_depth_maps
@@ -1185,12 +1416,13 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     # the sequences render in worker processes, forked before CUDA is used
-    pool = ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("fork"))
+    pool = ProcessPoolExecutor(5, mp_context=multiprocessing.get_context("fork"))
     try:
         jobs = {"pinhole": pool.submit(render, N_FRAMES, {}),
                 "radtan": pool.submit(render, N_RADTAN, {"dist": DIST}),
                 "kb8": pool.submit(render, N_KB8, KB8_RIG),
-                "depths": pool.submit(render_depths, N_RGBD)}
+                "depths": pool.submit(render_depths, N_RGBD),
+                "imu": pool.submit(render_imu, N_IMU)}
         return run(jobs, t_start)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -1418,11 +1650,16 @@ def run(jobs, t_start) -> int:
     c, by_path["rgbd"] = phase_rgbd(dev, imgs, ts, depths, rig)
     checks.update(c)
     del depths
+    imgs_i, ts_i, imu_i, render_i = jobs["imu"].result()
+    c, by_path["I"] = phase_imu(dev, imgs_i, ts_i, imu_i)
+    checks.update(c)
+    del imgs_i
     for path, counts in by_path.items():
         for name, n in counts.items():
             checks[f"{name} launched on the {path} path"] = n >= 1
     log(f"[smoke] rendering (in worker processes): radtan {render_d:.1f} s, kb8 "
-        f"{render_f:.1f} s, depth maps {render_r:.1f} s; command so far "
+        f"{render_f:.1f} s, depth maps {render_r:.1f} s, corridor and IMU {render_i:.1f} s; "
+        f"command so far "
         f"{time.perf_counter() - t_start:.1f} s")
 
     failed = [k for k, v in checks.items() if not v]

@@ -99,3 +99,60 @@ def device_ms_per_launch(launch, n: int = 200, warm: int = 10,
         end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+class GraphedCall:
+    """`fn(*tensors) -> tuple of tensors`, replayed from a CUDA graph on the
+    card: one graph per input signature (shapes and dtypes), captured at
+    the first call with it, after two warm-up calls on a side stream; each
+    call copies its inputs into the graph's static buffers, replays it on
+    the current stream and returns clones of the static outputs. fn must
+    run the same operations for every input of a signature and never read
+    the card from the host. On CPU tensors fn runs as it is.
+
+    A capture that fails (an operation a graph cannot hold) leaves that
+    signature running fn eagerly on the same card, its reason kept in
+    `eager` (nothing moves to the CPU). Capture is thread-local, so the
+    mapper and GBA threads go on launching meanwhile."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graphs: dict = {}
+        self.eager: dict = {}
+
+    def __call__(self, *tensors):
+        if tensors[0].device.type != "cuda":
+            return self.fn(*tensors)
+        key = tuple((tuple(t.shape), t.dtype) for t in tensors)
+        if key in self.eager:
+            return self.fn(*tensors)
+        entry = self.graphs.get(key)
+        if entry is None:
+            entry = self._capture(key, tensors)
+            if entry is None:
+                return self.fn(*tensors)
+        graph, static_in, static_out = entry
+        for dst, src in zip(static_in, tensors):
+            dst.copy_(src)
+        graph.replay()
+        return tuple(o.clone() for o in static_out)
+
+    def _capture(self, key, tensors):
+        static_in = [t.clone() for t in tensors]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self.fn(*static_in)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = tuple(self.fn(*static_in))
+        except RuntimeError as e:
+            torch.cuda.current_stream().wait_stream(side)
+            self.eager[key] = repr(e)
+            return None
+        self.graphs[key] = (graph, static_in, static_out)
+        return self.graphs[key]
+

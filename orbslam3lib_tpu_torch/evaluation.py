@@ -78,6 +78,46 @@ def multimap_report(maps_kf, origins, spawn, merge, trajectory, states):
     return out
 
 
+def imu_report(trajectory, maps_kf, ts_origin: float, grey_ts, kf_bias=None,
+               init_ts=None) -> dict:
+    """chip_smoke.py's phase I numbers (stereo-inertial SLAM down the
+    corridor of `io.synthetic.corridor_pose_at`) from host arrays, for
+    either package's run. trajectory: [(ts, R, t)] of the tracked frames;
+    maps_kf: the final map's (kf_valid, kf_R, kf_t, kf_ts) numpy arrays;
+    ts_origin: the map's stamp origin; grey_ts: the stamps of the grey
+    frames, which the tracker dead-reckons on the IMU; kf_bias: the map's
+    (kf_bg, kf_ba) arrays and init_ts the IMU initialisation's stamp.
+
+    ate_m / kf_ate_m: SE(3)-aligned ATE of the trajectory and of the valid
+    keyframes; grey_err_m: the largest error of a grey frame's centre under
+    the trajectory's alignment; kf_bias_g / kf_bias_a: the median over the
+    keyframes from the initialisation on of their VI-BA biases (the IMU's
+    biases are constant: one frame's estimate swings by +-0.1 m/s^2)."""
+    from .io.synthetic import corridor_pose_at
+    t_traj = np.asarray([f[0] for f in trajectory], np.float64)
+    est = np.stack([-np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+                    for _, R, t in trajectory])
+    gt = corridor_pose_at(t_traj)[1]
+    s, R_al, t_al = umeyama_alignment(est, gt)
+    err = np.linalg.norm((R_al @ est.T).T + t_al - gt, axis=1)
+    grey = np.isin(np.round(t_traj, 6), np.round(np.asarray(grey_ts, np.float64), 6))
+    v, R, t, kts = maps_kf
+    sel = np.flatnonzero(v)
+    est_kf = -np.einsum("kji,kj->ki", R[sel].astype(np.float64), t[sel].astype(np.float64))
+    gt_kf = corridor_pose_at(kts[sel].astype(np.float64) + ts_origin)[1]
+    out = {}
+    if kf_bias is not None and init_ts is not None:
+        since = sel[kts[sel].astype(np.float64) + ts_origin >= init_ts - 1e-6]
+        for name, b in zip(("kf_bias_g", "kf_bias_a"), kf_bias):
+            out[name] = np.median(np.asarray(b, np.float64)[since], axis=0).tolist()
+        out["kf_bias_n"] = int(len(since))
+    return {**out, "ate_m": float(np.sqrt((err ** 2).mean())),
+            "kf_ate_m": ate_rmse(est_kf, gt_kf) if len(sel) >= 3 else None,
+            "grey_err_m": float(err[grey].max()) if grey.any() else None,
+            "grey_frames_tracked": int(grey.sum()),
+            "trajectory_frames": int(len(trajectory))}
+
+
 def rpe_rmse(est_centers: np.ndarray, gt_centers: np.ndarray, delta: int = 1) -> float:
     """Relative pose (translation) error RMSE over frame pairs delta apart."""
     de = est_centers[delta:] - est_centers[:-delta]

@@ -5,7 +5,7 @@ A port of `orbslam3lib_tpu/io/synthetic.py` without its JAX use: the
 distorted-camera unprojections that the reference renders through its jnp
 camera models are numpy here. Given the same parameters and seed it renders
 the same frames, so a machine without JAX renders the bench's own orbit
-sequence. (The IMU synthesiser waits for the IMU port.)
+sequence, and `synth_imu` draws the same IMU samples as the reference's.
 """
 from __future__ import annotations
 
@@ -284,6 +284,72 @@ def corridor_trajectory(n_frames: int, dt: float = 1.0 / 15.0,
     ts = np.arange(n_frames, dtype=np.float64) * dt
     R_cw, c_w = corridor_pose_at(ts, speed, wiggle)
     return list(R_cw.astype(np.float32)), list(c_w.astype(np.float32)), ts
+
+
+GRAVITY_W = np.array([0.0, 9.81, 0.0])  # world gravity acceleration (+y down)
+
+
+def synth_imu(t0: float, t1: float, freq: float = 200.0,
+              speed: float = 0.8, wiggle: float = 0.25,
+              bg=np.zeros(3), ba=np.zeros(3),
+              sigma_g: float = 0.0, sigma_a: float = 0.0, rng=None,
+              R_bc=None, t_bc=None):
+    """Body-frame IMU samples along the corridor trajectory
+    (`corridor_pose_at`) in (t0, t1]: gyro (N, 3), specific-force accel
+    (N, 3) and dts (N,), float32 (reference `io/synthetic.synth_imu`).
+
+    R_bc / t_bc: the IMU-from-camera extrinsic (p_b = R_bc p_c + t_bc),
+    identity by default; the body moves as R_wb = R_wc R_bc^T,
+    p_b = c - R_wb t_bc. Rates and accelerations come from central finite
+    differences of the analytic pose around each sample's midpoint; the
+    accelerometer measures f = R_wb^T (a_w - g_w). Noise (sigma_g,
+    sigma_a: discrete sigmas) and the constant biases bg, ba are added.
+    With `rng=None` each call draws from a fresh `default_rng(0)`, as the
+    reference does: pass one generator through a sequence's calls."""
+    R_bc = np.eye(3) if R_bc is None else np.asarray(R_bc, np.float64)
+    t_bc = np.zeros(3) if t_bc is None else np.asarray(t_bc, np.float64)
+    dt = 1.0 / freq
+    ts = np.arange(t0 + dt, t1 + dt * 0.5, dt)
+    eps = 1e-4
+
+    def body_pose(tq):
+        R_wc, c = corridor_pose_at(tq, speed, wiggle)
+        R_wb = R_wc.astype(np.float64) @ R_bc.T
+        p_b = c.astype(np.float64) - np.einsum("tij,j->ti", R_wb, t_bc)
+        return R_wb, p_b
+
+    R0, p_m = body_pose(ts - dt * 0.5)                 # midpoints
+    Ra, p_lo = body_pose(ts - dt * 0.5 - eps)
+    Rb, p_hi = body_pose(ts - dt * 0.5 + eps)
+    a_w = (p_hi - 2 * p_m + p_lo) / (eps * eps)
+    # body rates from the rotation increment around the midpoint
+    gyro = np.zeros((len(ts), 3), dtype=np.float64)
+    for i in range(len(ts)):
+        dRm = Ra[i].T @ Rb[i]
+        w_hat = (dRm - dRm.T) / (2 * 2 * eps)   # log of a tiny rotation
+        gyro[i] = [w_hat[2, 1], w_hat[0, 2], w_hat[1, 0]]
+    f_b = np.einsum("tij,tj->ti", np.transpose(R0, (0, 2, 1)), a_w - GRAVITY_W)
+    rng = rng or np.random.default_rng(0)
+    gyro = gyro + bg + rng.normal(0, sigma_g, gyro.shape)
+    f_b = f_b + ba + rng.normal(0, sigma_a, f_b.shape)
+    dts = np.full(len(ts), dt, dtype=np.float32)
+    return gyro.astype(np.float32), f_b.astype(np.float32), dts
+
+
+def corridor_imu_stream(ts, noise_gyro: float, noise_acc: float, freq: float,
+                        bg=(0.0, 0.0, 0.0), ba=(0.0, 0.0, 0.0), seed: int = 0):
+    """The IMU between consecutive frame stamps `ts` of the corridor: a list
+    with None for the first frame, then (gyro, acc, dts) per frame from
+    `synth_imu` at `freq`, noise at the discrete sigmas (density times
+    sqrt(freq)), constant biases bg / ba, all calls drawing from one
+    `default_rng(seed)`."""
+    rng = np.random.default_rng(seed)
+    sg, sa = noise_gyro * np.sqrt(freq), noise_acc * np.sqrt(freq)
+    out = [None]
+    for a, b in zip(ts[:-1], ts[1:]):
+        out.append(synth_imu(float(a), float(b), freq=freq, bg=np.asarray(bg, np.float64),
+                             ba=np.asarray(ba, np.float64), sigma_g=sg, sigma_a=sa, rng=rng))
+    return out
 
 
 def _orbit_world(n_frames: int, period: float):

@@ -24,10 +24,12 @@ the current map queries the frozen BoW databases of the archived maps;
 three consistent hits, the cross-map match (`match_kf_landmarks_cross`,
 kernel 2 on the card), Sim3 RANSAC and OptimizeSim3 verify it, and the
 archived map is welded into the current one (`models/atlas.Atlas.merge`
-through `merge_world_sim3`), followed by a BA over the seam. Only the
-visual branch is ported: the inertial one waits for the IMU (ROADMAP
-queue 1). Not ported: `_probe`'s branch for the native inverted-file
-database.
+through `merge_world_sim3`), followed by a BA over the seam. Once the
+tracker's IMU is initialised (`MapMerger.inertial`) the weld is yaw-only
+with scale 1 and the scale gate [0.9, 1.1] (MergeLocal2), and the archived
+map's preintegration registry comes back with it for the tracker's
+MergeInertialBA. Not ported: `_probe`'s branch for the native
+inverted-file database.
 """
 from __future__ import annotations
 
@@ -598,7 +600,10 @@ class MapMerger:
     previous one and within 2 keyframes of its candidate, counts towards
     `consistency_needed`; then >= `MIN_MATCHES` cross matches, >=
     `MIN_INLIERS` Sim3 RANSAC inliers and as many after OptimizeSim3, and a
-    scale in (0.5, 2.0) accept the merge. A merge whose old candidate
+    scale in (0.5, 2.0) accept the merge, in (0.9, 1.1) with `inertial`
+    (LoopClosing.cc:144-163), whose weld is then the world Sim(3)'s yaw
+    alone with scale 1: both maps are gravity-aligned, +y down
+    (MergeLocal2, LoopClosing.cc:1783). A merge whose old candidate
     keyframe would not fit in the current map's keyframe slots is not made
     (the archive stays). The RANSAC draws come from `mapping/sim3.sim3_ransac`'s
     sampler (tests inject the reference's)."""
@@ -615,25 +620,20 @@ class MapMerger:
         self.consistent = (-1, -1)    # (archive position, candidate keyframe)
         self.count = 0
         self.n_merges = 0
-        # the last merge: {"kf_cur", "kf_old", "src_idx"}
+        # set by the tracker once its IMU is initialised
+        self.inertial = False
+        # the last merge: {"kf_cur", "kf_old", "src_idx", "gaps"}, "gaps" the
+        # archived map's preintegration registry in merged keyframe ids
         self.last_merge = None
 
-    @property
-    def inertial(self) -> bool:
-        return False
-
-    @inertial.setter
-    def inertial(self, value: bool):
-        if value:
-            raise NotImplementedError(
-                "the inertial merge (MergeLocal2, MergeInertialBA) is not ported "
-                "(ROADMAP queue 1: IMU)")
-
-    def archive(self, map_idx: int, db) -> None:
+    def archive(self, map_idx: int, db, gaps=None) -> None:
         """Freeze the BoW database of a map being archived (a new map is
-        spawned); nothing writes into it afterwards."""
+        spawned), and its preintegration registry {dst kf: (src kf, pre)}
+        (the inertial edges that a later MergeInertialBA welds with);
+        nothing writes into either afterwards."""
         if db is not None:
-            self.archives.append({"map_idx": map_idx, "db": db})
+            self.archives.append({"map_idx": map_idx, "db": db,
+                                  "gaps": dict(gaps) if gaps else {}})
 
     def best_hits(self, m: ms.MapState, kf_id: int) -> np.ndarray:
         """(n_archives, 2) host array of every archive's best keyframe id and
@@ -689,15 +689,25 @@ class MapMerger:
             R12, t12, s12, p_a, p_b, uv_a, uv_b, inl & valid, cam_params)
         if int(n_inl) < self.MIN_INLIERS:
             return False
-        if not 0.5 < float(s12) < 2.0:         # the visual merge's scale gate
+        s_lo, s_hi = (0.9, 1.1) if self.inertial else (0.5, 2.0)
+        if not s_lo < float(s12) < s_hi:
             return False
 
         Rw, tw, sw = merge_world_sim3(m.kf_R[kf_id], m.kf_t[kf_id], R12, t12, s12,
                                       old.kf_R[cand], old.kf_t[cand])
+        if self.inertial:
+            # the yaw about the gravity axis (+y) alone, scale 1
+            Rn = Rw.cpu().numpy().astype(np.float64)
+            yaw = np.arctan2(Rn[0, 2] - Rn[2, 0], Rn[0, 0] + Rn[2, 2])
+            cy, sy = np.cos(yaw), np.sin(yaw)
+            Rw = to_device(np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32),
+                           Rw.device)
+            sw = torch.ones((), dtype=torch.float32, device=Rw.device)
         src_idx = arc["map_idx"]
         n_dst_before = int(m.n_kf)
         # where the candidate lands after merge_into's compacting append
-        rank = np.cumsum(old.kf_valid.cpu().numpy()) - 1
+        kf_valid_old = old.kf_valid.cpu().numpy()
+        rank = np.cumsum(kf_valid_old) - 1
         cand_new = n_dst_before + int(rank[cand])
         if cand_new >= m.max_kf:
             # merge_into would drop the candidate: the weld would lose its
@@ -705,7 +715,14 @@ class MapMerger:
             return False
         atlas.merge(src_idx, Rw, tw, sw)
         self._welding_ba(atlas, kf_id, cand_new, cam_params)
-        self.last_merge = {"kf_cur": kf_id, "kf_old": cand_new, "src_idx": src_idx}
+        # the archived registry in merged ids (gaps between valid keyframes)
+        gaps = {}
+        for dst, (src, pre) in arc["gaps"].items():
+            if 0 <= dst < len(kf_valid_old) and kf_valid_old[dst] \
+                    and 0 <= src < len(kf_valid_old) and kf_valid_old[src]:
+                gaps[n_dst_before + int(rank[dst])] = (n_dst_before + int(rank[src]), pre)
+        self.last_merge = {"kf_cur": kf_id, "kf_old": cand_new, "src_idx": src_idx,
+                           "gaps": gaps}
         # the archive is merged; later archives' map indices shift down
         self.archives.pop(pos)
         for a in self.archives:

@@ -33,8 +33,12 @@ on a revisit. `save_atlas` / `load_atlas` write and read it as the
 reference's npz file (`models/serialization.py`), so a file written by
 either package loads in the other.
 
-Not ported, each raising NotImplementedError with its ROADMAP item: the
-inertial sensors.
+Inertial (`System(cfg, SENSOR_IMU_STEREO).track_stereo(pair, ts,
+imu=(gyro, acc, dts))`, and `SENSOR_IMU_MONOCULAR` with `track_monocular`;
+reference system.py:34-46, :105-109): the stereo or monocular tracker with
+`cfg.use_imu` set; each frame's IMU samples since the previous frame are fed
+to the tracker (`Tracker.feed_imu`) right before the frame, on the consumer
+thread too with `use_pipeline`.
 """
 from __future__ import annotations
 
@@ -59,14 +63,11 @@ SENSOR_RGBD = "rgbd"
 SENSOR_IMU_MONOCULAR = "imu_mono"
 SENSOR_IMU_STEREO = "imu_stereo"
 
-_UNPORTED_SENSORS = {
-    SENSOR_IMU_MONOCULAR: "IMU (ROADMAP queue 1, item 7: IMU)",
-    SENSOR_IMU_STEREO: "IMU (ROADMAP queue 1, item 7: IMU)",
-}
-
-
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
+# each sensor's tracker sensor and whether it carries an IMU
+_SENSORS = {SENSOR_STEREO: ("stereo", False), SENSOR_MONOCULAR: ("mono", False),
+            SENSOR_RGBD: ("rgbd", False), SENSOR_IMU_STEREO: ("stereo", True),
+            SENSOR_IMU_MONOCULAR: ("mono", True)}
+assert {b for b, _ in _SENSORS.values()} == set(SENSORS)
 
 
 class System:
@@ -78,13 +79,11 @@ class System:
                  enable_timing: bool = False, background_mapping: bool = False,
                  pose_callback: Optional[Callable] = None,
                  device: torch.device | str = "cuda"):
-        if sensor in _UNPORTED_SENSORS:
-            _unported(f"sensor {sensor!r}: {_UNPORTED_SENSORS[sensor]}")
-        if sensor not in SENSORS:
+        if sensor not in _SENSORS:
             raise ValueError(f"unknown sensor {sensor!r}")
         self.sensor = sensor
-        cfg.use_imu = False
-        self.tracker = Tracker(cfg, sensor, device=device,
+        base, cfg.use_imu = _SENSORS[sensor]
+        self.tracker = Tracker(cfg, base, device=device,
                                enable_loop_closing=enable_loop_closing,
                                enable_timing=enable_timing,
                                async_mapping=background_mapping)
@@ -102,33 +101,37 @@ class System:
 
     # -- frame entry points (TrackStereo / TrackMonocular / TrackRGBD) ---------
     def track_stereo(self, img_pair: np.ndarray, ts: float, imu=None) -> dict:
-        """A stereo pair (2, H, W) at time ts. Returns the tracker's result,
-        or {"queued": True} with `use_pipeline`."""
-        self._check_entry(SENSOR_STEREO, imu)
-        return self._dispatch((img_pair, None), ts)
+        """A stereo pair (2, H, W) at time ts; on `imu_stereo`, `imu` the
+        (gyro (N, 3), acc (N, 3), dts (N,)) samples since the previous
+        frame. Returns the tracker's result, or {"queued": True} with
+        `use_pipeline`."""
+        self._check_entry("stereo", imu)
+        return self._dispatch((img_pair, None), ts, imu)
 
     def track_monocular(self, img, ts: float, imu=None) -> dict:
-        """One (H, W) image at time ts; as `track_stereo`."""
-        self._check_entry(SENSOR_MONOCULAR, imu)
-        return self._dispatch((img, None), ts)
+        """One (H, W) image at time ts; as `track_stereo` (`imu` on
+        `imu_mono`)."""
+        self._check_entry("mono", imu)
+        return self._dispatch((img, None), ts, imu)
 
     def track_rgbd(self, img, depth_map, ts: float) -> dict:
         """One (H, W) image and its (H, W) depth map (0 where there is no
         depth) at time ts; as `track_stereo`."""
-        self._check_entry(SENSOR_RGBD, None)
-        return self._dispatch((img, depth_map), ts)
+        self._check_entry("rgbd", None)
+        return self._dispatch((img, depth_map), ts, None)
 
-    def _check_entry(self, sensor: str, imu) -> None:
-        if imu is not None:
-            _unported("IMU input (ROADMAP queue 1, item 7: IMU)")
-        if sensor != self.sensor:
-            raise ValueError(f"a {sensor} frame given to a {self.sensor!r} System")
+    def _check_entry(self, base: str, imu) -> None:
+        mine, inertial = _SENSORS[self.sensor]
+        if base != mine:
+            raise ValueError(f"a {base} frame given to a {self.sensor!r} System")
+        if imu is not None and not inertial:
+            raise ValueError(f"IMU samples given to a {self.sensor!r} System")
 
-    def _dispatch(self, payload, ts) -> dict:
+    def _dispatch(self, payload, ts, imu) -> dict:
         if self._queue is None:
-            return self._process(payload, ts)
+            return self._process(payload, ts, imu)
         try:
-            self._queue.put_nowait((payload, ts))
+            self._queue.put_nowait((payload, ts, imu))
         except queue.Full:
             self._dropped += 1
             Verbose.log(f"[system] frame dropped (backpressure), total "
@@ -139,20 +142,22 @@ class System:
         with on_device(self.tracker.device):
             while not self._shutdown:
                 try:
-                    payload, ts = self._queue.get(timeout=0.05)
+                    payload, ts, imu = self._queue.get(timeout=0.05)
                 except queue.Empty:
                     continue
                 try:
-                    out = self._process(payload, ts)
+                    out = self._process(payload, ts, imu)
                     if self.pose_callback is not None and self.tracker.pose is not None:
                         R, t = self.tracker.pose
                         self.pose_callback(to_host(R), to_host(t), ts, out)
                 finally:
                     self._queue.task_done()
 
-    def _process(self, payload, ts) -> dict:
+    def _process(self, payload, ts, imu) -> dict:
         img, depth_map = payload
         with self._lock:
+            if imu is not None:
+                self.tracker.feed_imu(*imu)
             return self.tracker.process_frame(img, ts, depth_map=depth_map)
 
     # -- state (System.h:187-190) ---------------------------------------------

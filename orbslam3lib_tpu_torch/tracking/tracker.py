@@ -104,10 +104,31 @@ coordinates, and the stereo tracker runs on them. Both run synchronously
 as stereo (timestamp guards, compaction, the map lock), which the
 reference's RGB-D path skips (ROADMAP queue 3).
 
+Inertial (`cfg.use_imu` on the stereo or the monocular sensor, reference
+:740-775, :1397-1470, :1514-1519, :1583-1599, :1685-1690, :1990-2316):
+`feed_imu` preintegrates the samples since the last frame into the frame's
+and the keyframe's preintegrations at once (`tracking/imu.integrate`, a
+batch of two); until the IMU is initialised the tracker inserts a keyframe
+every 0.25 s, then every 0.5 s. Each keyframe gap's preintegration is kept
+(`_note_kf_imu`); after 6 gaps and 1 s `_initialize_imu` estimates gravity,
+the biases and (monocular) the scale (`inertial_opt.inertial_init_
+optimization`), turns the map into the gravity frame and switches the loop
+closer and the map merger to their inertial forms. From then on a frame's
+pose is predicted by the IMU and refined by the visual-inertial solve
+against the last keyframe or, chained through the marginal prior, the last
+frame; every keyframe runs the windowed VI-BA (`mapping/vi_ba.py`) after
+its visual back end, with the full-chain VIBA1 (5 s after initialisation)
+and VIBA2 (15 s), and a monocular map's scale refined every 10 s from 25 s.
+While RECENTLY_LOST the pose is dead-reckoned on the IMU and keyframes keep
+coming every 0.25 s (`cfg.tracker.insert_kfs_when_lost`). Too little motion
+during the initialisation phase flags the IMU bad, and the next frame
+resets the map. The pipelined path does not run with an IMU (reference
+:807): such a tracker runs synchronously. Nothing catches a failed inertial
+solve: its state becomes the frame's.
+
 What this slice leaves out, each raising `NotImplementedError` that names
-its ROADMAP item where a configuration asks for it: IMU (so no inertial
-dead reckoning while lost and no inertial merge) and the fixed local-BA
-window.
+its ROADMAP item where a configuration asks for it: the fixed local-BA
+window, and an IMU on the RGB-D sensor (the reference has none).
 """
 from __future__ import annotations
 
@@ -123,7 +144,7 @@ import numpy as np
 import torch
 
 from ..config import CameraConfig, SlamConfig
-from ..device import get_device, on_device, to_device, to_host
+from ..device import GraphedCall, get_device, on_device, to_device, to_host
 from ..mapping import local_mapping as lm_ops
 from ..mapping.local_mapping import _last_write
 from ..mapping.loop_closing import LoopCloser, MapMerger, mapper_step_fused
@@ -131,8 +152,9 @@ from ..mapping.map_ba import inv_sigma2 as _inv_sigma2
 from ..mapping.map_ba import (global_bundle_adjust_auto, map_window_ba as _local_ba,
                               merge_gba_result)
 from ..mapping.twoview import reconstruct_two_views
+from ..mapping.vi_ba import apply_vi_window, local_inertial_ba
 from ..models import map_state as ms
-from ..models.atlas import Atlas
+from ..models.atlas import Atlas, transform_map
 from ..models.vocabulary import (DEFAULT_VOCAB_PATH, bow_from_descriptors,
                                  load_vocabulary, train_vocabulary)
 from ..ops.extractor import (Features, ThresholdController, extract_orb_mono,
@@ -140,7 +162,10 @@ from ..ops.extractor import (Features, ThresholdController, extract_orb_mono,
 from ..ops.pyramid import scale_factors_on
 from ..utils import cameras, lie, rectify
 from ..utils.timing import StageTimer
+from . import imu as imu_mod
 from . import matching
+from .inertial_opt import (InertialFrameState, inertial_init_optimization,
+                           pose_inertial_optimization, pose_inertial_optimization_last_frame)
 from .pose_opt import PoseObs, pose_optimization
 from .reloc import (detect_reloc_candidates, make_place_recognition,
                     relocalize_against_kf, track_reference_kf)
@@ -448,9 +473,10 @@ def check_ported(cfg: SlamConfig, sensor: str) -> None:
     them, as the reference does, and take an undistorted pinhole camera."""
     if sensor not in SENSORS:
         raise ValueError(f"unknown sensor {sensor!r}; the tracker takes {SENSORS}")
-    if cfg.use_imu:
+    if cfg.use_imu and sensor == "rgbd":
         raise NotImplementedError(
-            "IMU is not ported (ROADMAP queue 1, item 7: IMU)")
+            "an IMU goes with the stereo or the monocular sensor (the reference "
+            "has no inertial RGB-D sensor; ROADMAP queue 1, item 7)")
     if sensor != "stereo" and cfg.camera.model_id != cameras.PINHOLE:
         # the two-view reconstruction projects through the pinhole model
         # (as the reference's, twoview.py:108), and the RGB-D virtual right
@@ -610,6 +636,33 @@ class Tracker:
         # the next search windows)
         self._init_frame: Optional[tuple] = None
         self._init_prev_xy: Optional[torch.Tensor] = None
+        # the inertial state (reference :561-576, :610-619): the current
+        # bias estimate, the frame's velocity, the preintegrations since the
+        # last frame and since the last keyframe, each keyframe gap's
+        # preintegration (in order, and by destination keyframe id: (source
+        # id, pre)), the keyframes' stamps and centres, the VIBA stage, the
+        # anchor of the per-frame solve and the previous solve's marginal
+        # prior (state, H), None right after a keyframe
+        z3 = torch.zeros(3, device=self.device)
+        self.imu_ready = False
+        self.imu_bias = (z3, z3.clone())
+        self._pre_frame: Optional[imu_mod.Preintegrated] = None
+        self._pre_kf: Optional[imu_mod.Preintegrated] = None
+        self._kf_preints: List[imu_mod.Preintegrated] = []
+        self._kf_times: List[float] = []
+        self._gap_by_dst: dict = {}
+        self._prev_note_kf_id = -1
+        self._kf_centers: List[np.ndarray] = []
+        self._imu_init_ts: Optional[float] = None
+        self._viba_stage = 0            # 1 after VIBA1, 2 after VIBA2
+        self._next_scale_ref_ts: Optional[float] = None
+        self.anchor_state: Optional[InertialFrameState] = None
+        self._inertial_prior = None
+        self._bad_imu = False
+        self._tbc_dev = None
+        self._integrate_pair = GraphedCall(self._flat_integrate_pair())
+        self._solve_anchor = GraphedCall(self._flat_inertial_solve(False))
+        self._solve_prior = GraphedCall(self._flat_inertial_solve(True))
         # the pipelined path
         self.pipeline = int(pipeline)
         self.chunk = max(1, int(chunk))
@@ -662,6 +715,17 @@ class Tracker:
         R_bc = np.asarray(cfg.imu.R_bc, np.float64).reshape(3, 3)
         cfg.imu.R_bc = tuple((R_bc @ rr.R_rect[0].T).reshape(-1).tolist())
 
+    @property
+    def _tbc(self):
+        """The IMU-from-camera extrinsic (R_bc, t_bc) on the card, made
+        once (after a rectification turned R_bc)."""
+        if self._tbc_dev is None:
+            ci = self.cfg.imu
+            self._tbc_dev = (
+                to_device(np.asarray(ci.R_bc, np.float32).reshape(3, 3), self.device),
+                to_device(np.asarray(ci.t_bc, np.float32), self.device))
+        return self._tbc_dev
+
     def _rel_ts(self, ts: float) -> float:
         """Map-relative timestamp for the f32 map tensors (origin: the map's
         first keyframe, kept in f64 on the host)."""
@@ -680,6 +744,54 @@ class Tracker:
             return x
         return to_device(np.asarray(x, np.float32), self.device)
 
+    # -- the IMU (reference :740-762) --------------------------------------
+    def feed_imu(self, gyro, acc, dts):
+        """The IMU samples since the previous frame (GrabImuData +
+        PreintegrateIMU): (N, 3) gyro in rad/s, (N, 3) accel in m/s^2, (N,)
+        dts in s, host arrays; call before `process_frame`. Integrated into
+        the frame's and the keyframe's preintegrations as one batch of two,
+        each starting from the current bias estimate when new; on the card
+        from a CUDA graph per sample count (`device.GraphedCall`: ~2,100
+        small operations for 13 samples, enqueued once). Nothing is read
+        back; ignored without `cfg.use_imu`."""
+        if not self.cfg.use_imu:
+            return
+        bg, ba = self.imu_bias
+        if self._pre_frame is None:
+            self._pre_frame = imu_mod.empty_preintegrated(bg, ba)
+        if self._pre_kf is None:
+            self._pre_kf = imu_mod.empty_preintegrated(bg, ba)
+        dts = np.asarray(dts, np.float32)
+        if len(dts) == 0:
+            return
+        samples = [to_device(np.asarray(x, np.float32), self.device) for x in (gyro, acc, dts)]
+        pres = (self._pre_frame, self._pre_kf)
+        out = self._integrate_pair(*(getattr(p, f) for p in pres for f in imu_mod.TENSOR_FIELDS),
+                                   *samples)
+        n = len(imu_mod.TENSOR_FIELDS)
+        add = float(np.sum(dts, dtype=np.float64))
+        self._pre_frame, self._pre_kf = (
+            imu_mod.Preintegrated(*out[i * n:(i + 1) * n], dt_host=p.dt_host + add)
+            for i, p in enumerate(pres))
+
+    def _flat_integrate_pair(self):
+        """`imu.integrate` of the frame's and the keyframe's preintegrations
+        (a flat tuple of their fields, then gyro, acc and dts on the card)
+        as one batch of two, for `GraphedCall`."""
+        ci = self.cfg.imu
+        sig = (np.float32(ci.noise_gyro * np.sqrt(ci.freq)),
+               np.float32(ci.noise_acc * np.sqrt(ci.freq)),
+               np.float32(ci.walk_gyro), np.float32(ci.walk_acc))
+        n = len(imu_mod.TENSOR_FIELDS)
+
+        def integrate(*t):
+            both = imu_mod.integrate(
+                imu_mod.Preintegrated.stack([imu_mod.Preintegrated(*t[:n]),
+                                             imu_mod.Preintegrated(*t[n:2 * n])]),
+                *t[2 * n:], *sig)
+            return tuple(getattr(both, f)[i] for i in range(2) for f in imu_mod.TENSOR_FIELDS)
+        return integrate
+
     # -- per-frame entry ----------------------------------------------------
     def process_frame(self, img, ts: float, depth_map=None) -> dict:
         """img (uint8 or float32; numpy or tensor): a (2, H, W) stereo pair
@@ -692,6 +804,11 @@ class Tracker:
         if (depth_map is not None) != (self.sensor == "rgbd"):
             raise ValueError(f"sensor {self.sensor!r}: a depth map goes with RGB-D frames "
                              "and only with them")
+        # the bad-IMU reset (Tracking.cc:1858-1863): the mapping set the flag
+        if self._bad_imu:
+            self._bad_imu = False
+            self._drain_pipeline()
+            self._reset_active_map()
         # timestamp guards (Tracking.cc:1871-1909): a backwards step resets
         # the map, a gap over 1 s starts a new one
         if self._last_frame_ts is not None and self.state != NOT_INITIALIZED:
@@ -714,8 +831,9 @@ class Tracker:
 
         # the pipelined path: steady-state stereo tracking only;
         # initialisation and a loss drain it and run synchronously
-        # (reference :805-810)
-        if self.pipeline > 1 and self.state == OK and self.sensor == "stereo":
+        # (reference :805-810); never with an IMU
+        if self.pipeline > 1 and self.state == OK and self.sensor == "stereo" \
+                and not cfg.use_imu:
             return self._process_frame_pipelined(img, ts)
         self._drain_pipeline()
 
@@ -777,6 +895,7 @@ class Tracker:
 
             self.frame_id += 1
             self.stats["n_frames"] += 1
+            self._pre_frame = None      # consumed; the next feed_imu starts anew
             if self.pose is not None:
                 R, t = self.pose
                 self.trajectory.append((ts, to_host(R), to_host(t)))
@@ -856,13 +975,14 @@ class Tracker:
             img_w=cfg.camera.width, img_h=cfg.camera.height,
             th_far=cfg.tracker.th_far_points)
         n_mp = int(self.map.n_mp)
-        self._post_init(kf_id, n_mp, feats)
+        self._post_init(kf_id, n_mp, ts, feats)
         return {"state": OK, "n_inliers": n_mp, "init": True}
 
-    def _post_init(self, kf_id: int, n_mp: int, feats: Features):
+    def _post_init(self, kf_id: int, n_mp: int, ts: float, feats: Features):
         """Tracking starts on the initial map whose last keyframe is kf_id
         (reference :1380-1394): OK, no velocity, kf_id the reference
-        keyframe and the only one added to the BoW database."""
+        keyframe and the only one added to the BoW database; with an IMU its
+        stamp starts the keyframe chain."""
         self._n_kf_host = int(self.map.n_kf)
         if self.pose is None:
             self.pose = self._eye_pose()
@@ -876,6 +996,7 @@ class Tracker:
         self._ensure_place_rec(feats.desc[0])
         self.place_rec.add(int(kf_id), self.map.kf_desc[int(kf_id)],
                            self.map.kf_feat_valid[int(kf_id)])
+        self._note_kf_imu(ts)
 
     def _initialize_mono(self, feats: Features, ts, n_feat) -> dict:
         """MonocularInitialization (Tracking.cc:2505; reference
@@ -922,7 +1043,7 @@ class Tracker:
             self.map, ts0, cur[0], self._init_frame[1:], f, idx, out["tri_ok"] & ok,
             out["R"], out["t"], out["p3d"], n_levels=cfg.orb.n_levels)
         self.pose = (R, t)
-        self._post_init(kf1, int(self.map.n_mp), feats)
+        self._post_init(kf1, int(self.map.n_mp), ts, feats)
         ids = np.full(cfg.ba.window_size + cfg.ba.n_fixed, -1, np.int32)
         ids[:2] = kf1 - 1, kf1
         fixed = np.zeros(len(ids), bool)
@@ -948,18 +1069,38 @@ class Tracker:
             pose_rounds=cfg.tracker.pose_rounds,
             pose_iters=cfg.tracker.pose_iters)
 
+    def _imu_live(self) -> bool:
+        """The IMU predicts this frame: initialised, with samples fed."""
+        return bool(self.cfg.use_imu and self.imu_ready and self._pre_frame is not None
+                    and self._pre_frame.dt_host > 0)
+
+    def _predict_pose(self, R_last, t_last):
+        """The frame's predicted pose and velocity (reference :1397-1410):
+        the IMU's dead reckoning from the last pose and the frame's velocity
+        when it is live, else the constant-velocity model."""
+        if self._imu_live():
+            bg, ba = self.imu_bias
+            R_bc, t_bc = self._tbc
+            Rwb, p_b = imu_mod.body_from_cam(R_last, t_last, R_bc, t_bc)
+            R2, v2, p2 = imu_mod.predict_state(Rwb, self.frame_state_v, p_b,
+                                               self._pre_frame, bg, ba)
+            Rcw, tcw = imu_mod.cam_from_body(R2, p2, R_bc, t_bc)
+            return Rcw, tcw, v2
+        Rv, tv = (self._dev(x) for x in self.vel)
+        R0, t0 = lie.se3_compose(Rv, tv, R_last, t_last)
+        return R0, t0, self.frame_state_v
+
     def _track(self, feats: Features, u_r, depth, ts) -> dict:
         cfg = self.cfg
         R_last, t_last = (self._dev(x) for x in self.pose)
-        Rv, tv = (self._dev(x) for x in self.vel)
-        R0, t0 = lie.se3_compose(Rv, tv, R_last, t_last)
+        R0, t0, v_pred = self._predict_pose(R_last, t_last)
         f0 = (feats.xy[0], feats.level[0], feats.desc[0], feats.valid[0])
 
         # previous frame's bindings drive the stage-1 restriction and the
         # local map (None right after init: both stages search the map)
         local = bool(cfg.tracker.local_map_tracking)
         prev = self._prev_feat_mp if local else None
-        (R, t, mp_feat, _, n_inl, visible, _, _, feat_mp_out) = _two_stage_core(
+        (R, t, mp_feat, _, n_inl, visible, obs, _, feat_mp_out) = _two_stage_core(
             self.map, R0, t0, *f0, u_r, depth, self.cam_params,
             prev_mp=prev, prev_angle=self._prev_feat_angle if prev is not None else None,
             feat_angle=feats.angle[0] if prev is not None else None,
@@ -969,13 +1110,26 @@ class Tracker:
         self.map.mp_visible += visible
         self.map.mp_found += (mp_feat >= 0).to(torch.float32)
 
-        # finite-difference velocity (kept with each keyframe, kf_v)
-        _, p_w = lie.se3_inverse(R, t)
-        _, p_l = lie.se3_inverse(R_last, t_last)
-        dt_f = max(ts - (self.trajectory[-1][0] if self.trajectory else ts - 0.05), 1e-3)
-        self.frame_state_v = (p_w - p_l) / dt_f
-
         min_inl = cfg.tracker.min_inliers
+        if self._imu_live() and self.anchor_state is not None and n_inliers >= min_inl:
+            # the visual-inertial refinement (reference :1438-1463): against
+            # the anchor, or chained through the previous frame's marginal
+            # prior (ConstraintPoseImu, reset at every keyframe)
+            bg, ba = self.imu_bias
+            st, n2, H_marg = self._inertial_refine(
+                InertialFrameState(R=R, t=t, v=v_pred, bg=bg, ba=ba), obs)
+            R, t = st.R, st.t
+            self.frame_state_v = st.v
+            self.imu_bias = (st.bg, st.ba)
+            self._inertial_prior = (st, H_marg)
+            n_inliers = max(n_inliers, int(n2))
+        else:
+            # finite-difference velocity (kept with each keyframe, kf_v)
+            _, p_w = lie.se3_inverse(R, t)
+            _, p_l = lie.se3_inverse(R_last, t_last)
+            dt_f = max(ts - (self.trajectory[-1][0] if self.trajectory else ts - 0.05), 1e-3)
+            self.frame_state_v = (p_w - p_l) / dt_f
+
         if n_inliers < min_inl and self.last_kf_id >= 0:
             # TrackReferenceKeyFrame fallback (Tracking.cc:2778): re-seed from
             # the reference keyframe's landmarks (kernel 2 on the card), then
@@ -992,7 +1146,7 @@ class Tracker:
                                     self.cam_params, **self._track_args())
                 n_inliers = int(n_inl)
         if n_inliers < min_inl:
-            return self._handle_loss(feats, ts)
+            return self._handle_loss(feats, ts, u_r, depth, pred_pose=(R0, t0))
 
         self.state = OK
         self.lost_since = None
@@ -1002,21 +1156,69 @@ class Tracker:
         self.n_inliers_last = n_inliers
         self._prev_feat_mp = feat_mp_out
         self._prev_feat_angle = feats.angle[0]
+        if cfg.use_imu and self.imu_ready:
+            # the next frame's anchor (reference :1514-1519)
+            bg, ba = self.imu_bias
+            self.anchor_state = InertialFrameState(R=R, t=t, v=self.frame_state_v, bg=bg, ba=ba)
+            self._pre_frame = None
 
         made_kf = False
-        if self._need_new_keyframe(n_inliers, feats, mp_feat, depth):
+        if self._need_new_keyframe(n_inliers, feats, mp_feat, depth, ts):
             self._create_keyframe(feats, u_r, depth, mp_feat, ts, n_inliers)
             made_kf = True
         return {"state": OK, "n_inliers": n_inliers, "kf": made_kf}
 
-    def _handle_loss(self, feats: Features, ts: float) -> dict:
+    def _inertial_refine(self, cur: InertialFrameState, obs: PoseObs):
+        """The frame's visual-inertial solve from the tracked state `cur`:
+        against the anchor, or with the previous frame's marginal prior
+        (`pose_inertial_optimization(_last_frame)`). On the card each runs
+        from a CUDA graph (`device.GraphedCall`: some 40,000 small
+        operations a solve, enqueued once). Returns (state, n_inliers,
+        H_marg)."""
+        prior = self._inertial_prior
+        other = prior[0] if prior is not None else self.anchor_state
+        pre = self._pre_frame
+        flat = (*cur, *other, *((prior[1],) if prior is not None else ()),
+                *(getattr(pre, f) for f in imu_mod.TENSOR_FIELDS), *obs, self.cam_params,
+                *self._tbc)
+        out = (self._solve_prior if prior is not None else self._solve_anchor)(*flat)
+        return InertialFrameState(*out[:5]), out[6], out[7]
+
+    def _flat_inertial_solve(self, with_prior: bool):
+        """The frame's inertial solver on a flat tuple of tensors (the
+        layout of `_inertial_refine`), for `GraphedCall`."""
+        cfg = self.cfg
+
+        def solve(*t):
+            cur, other = InertialFrameState(*t[0:5]), InertialFrameState(*t[5:10])
+            k = 11 if with_prior else 10
+            n = len(imu_mod.TENSOR_FIELDS)
+            pre = imu_mod.Preintegrated(*t[k:k + n])
+            obs = PoseObs(*t[k + n:k + n + 6])
+            cam, R_bc, t_bc = t[k + n + 6:k + n + 9]
+            kw = dict(cam_model=cfg.camera.model_id, bf=float(cfg.bf), R_bc=R_bc, t_bc=t_bc)
+            if with_prior:
+                st, mask, n2, H = pose_inertial_optimization_last_frame(
+                    cur, other, t[10], pre, obs, cam, **kw)
+            else:
+                st, mask, n2, H = pose_inertial_optimization(cur, other, pre, obs, cam, **kw)
+            return (*st, mask, n2, H)
+        return solve
+
+    def _handle_loss(self, feats: Features, ts: float, u_r=None, depth=None,
+                     pred_pose=None) -> dict:
         """Count the failure, enter RECENTLY_LOST and try BoW relocalisation
         (reference :1529-1582, Tracking.cc:2034-2076): the keyframe
         database's candidates (`detect_reloc_candidates`), culled ones
         skipped, each tried in turn (`relocalize_against_kf`); the first
         with >= 50 inliers sets the pose, resets the velocity and counts
-        `n_reloc`. Otherwise the next frames keep tracking from the last
-        pose. Lost for more than 5 s, the map is given up (reference
+        `n_reloc` (the inertial prior predates the jump and is dropped).
+        Otherwise the next frames keep tracking from the last pose; with a
+        live IMU (reference :1583-1599, Tracking.cc:2042) the IMU-predicted
+        pose `pred_pose` becomes the frame's, and with
+        `cfg.tracker.insert_kfs_when_lost` a keyframe without landmarks is
+        inserted every 0.25 s, so the preintegration chain bridges the gap.
+        Lost for more than 5 s, the map is given up (reference
         :1600-1605, `_new_map`): a map of more than 10 keyframes is archived
         in the Atlas and a new one started; a smaller one is reset, also
         where the reference only resets the tracking state and keeps the
@@ -1046,10 +1248,20 @@ class Tracker:
                 if n_rel >= 50:                # nGood >= 50 after the refine
                     self.pose = (R, t)
                     self.vel = self._eye_pose()
+                    self._inertial_prior = None
                     self.state = OK
                     self.lost_since = None
                     self.stats["n_reloc"] += 1
                     return {"state": OK, "n_inliers": n_rel, "reloc": True}
+        if cfg.use_imu and self.imu_ready and self.state == RECENTLY_LOST \
+                and pred_pose is not None:
+            self.pose = pred_pose
+            if (cfg.tracker.insert_kfs_when_lost and u_r is not None and self._kf_times
+                    and ts - self._kf_times[-1] >= 0.25
+                    and self._n_kf_host < self.map.max_kf - 1):
+                mp_none = torch.full((self.map.max_mp,), -1, dtype=torch.int32,
+                                     device=self.device)
+                self._create_keyframe(feats, u_r, depth, mp_none, ts, 1)
         if self.lost_since is not None and ts - self.lost_since > 5.0:
             self._new_map()
         return {"state": self.state, "n_inliers": 0}
@@ -1072,7 +1284,8 @@ class Tracker:
             self._abort_gba_and_join()
             self._new_map_epoch()
             if self.map_merger is not None and self.place_rec is not None:
-                self.map_merger.archive(self.atlas.current, self.place_rec)
+                self.map_merger.archive(self.atlas.current, self.place_rec,
+                                        gaps=dict(self._gap_by_dst))
             self.atlas.create_new_map()
             self.stats["n_new_maps"] += 1
             self._start_over()
@@ -1113,6 +1326,21 @@ class Tracker:
         self._prev_feat_angle = None
         self._init_frame = None
         self._init_prev_xy = None
+        # the inertial chain starts over (reference :1620-1632); the bias
+        # estimate, the velocity and the open preintegrations are kept
+        self.imu_ready = False
+        if self.loop_closer is not None:
+            self.loop_closer.inertial = False
+        if self.map_merger is not None:
+            self.map_merger.inertial = False
+        self._imu_init_ts = None
+        self._viba_stage = 0
+        self._next_scale_ref_ts = None
+        self._kf_preints, self._kf_times = [], []
+        self._gap_by_dst, self._prev_note_kf_id = {}, -1
+        self._inertial_prior = None
+        self._bad_imu = False
+        self._kf_centers = []
 
     def load_atlas(self, atlas: Atlas):
         """Continue from a loaded Atlas (`System.load_atlas`). The pipeline
@@ -1159,10 +1387,16 @@ class Tracker:
         self._kf_wall = {}
 
     # -- keyframe policy (NeedNewKeyFrame, Tracking.cc:3125) ----------------
-    def _need_new_keyframe(self, n_inliers, feats: Features, mp_feat, depth) -> bool:
+    def _need_new_keyframe(self, n_inliers, feats: Features, mp_feat, depth, ts) -> bool:
         cfg = self.cfg
         if self._n_kf_host >= self.map.max_kf - 1:
             return False
+        # an inertial map needs dense keyframes: every 0.25 s before the IMU
+        # is initialised, 0.5 s after (reference :1685-1690)
+        if cfg.use_imu and self._kf_times:
+            gap = ts - self._kf_times[-1]
+            if (not self.imu_ready and gap >= 0.25) or (self.imu_ready and gap >= 0.5):
+                return True
         close_th = cfg.stereo.depth_factor * cfg.stereo.baseline
         f_of_mp = mp_feat.cpu().numpy()
         tracked_slots = np.unique(f_of_mp[f_of_mp >= 0])
@@ -1203,8 +1437,8 @@ class Tracker:
     def _create_keyframe(self, feats: Features, u_r, depth, mp_feat, ts,
                          n_inliers):
         cfg = self.cfg
-        R, t = self.pose
-        zeros3 = torch.zeros(3, dtype=torch.float32, device=self.device)
+        R, t = (self._dev(x) for x in self.pose)
+        bg, ba = self.imu_bias
         # monocular keyframes spawn no landmark (their depths are 0 anyway):
         # new ones come from local mapping's triangulation
         close_depth = -1.0 if self.sensor == "mono" else \
@@ -1214,7 +1448,7 @@ class Tracker:
             feats.desc[0], feats.valid[0], u_r, depth, mp_feat,
             self.cam_params, close_depth,
             cam_model=cfg.camera.model_id, n_levels=cfg.orb.n_levels,
-            v=self.frame_state_v, bg=zeros3, ba=zeros3, angle=feats.angle[0],
+            v=self.frame_state_v, bg=bg, ba=ba, angle=feats.angle[0],
             img_w=cfg.camera.width, img_h=cfg.camera.height,
             th_far=cfg.tracker.th_far_points)
         self.last_kf_frame = self.frame_id
@@ -1226,6 +1460,8 @@ class Tracker:
             self._n_kf_host = kf_id + 1
             if kf_id % 8 == 0:
                 self._probe_mp_pressure()
+        self._note_kf_imu(ts)
+        if kf_id >= 0:
             self._queue_mapping(kf_id, lagged_loops=False)
 
     def _create_keyframe_from_record(self, rec: "_Chunk", c: int, R, t, n_inl: int):
@@ -1417,6 +1653,30 @@ class Tracker:
         mm = self.map_merger
         if mm is not None and mm.archives:
             self._detect_merge(kid)
+        if cfg.use_imu and self.imu_ready:
+            self._inertial_back_end(kid)
+
+    def _inertial_back_end(self, kid: int):
+        """After a keyframe's visual back end, once the IMU is initialised
+        (reference :1990-2016): the windowed VI-BA, then the staged full VI
+        passes, VIBA1 more than 5 s after the initialisation and VIBA2 more
+        than 15 s after, then (monocular) the scale refinement every 10 s
+        from 25 s on."""
+        self._run_vi_window(kid)
+        t_init = (self._kf_times[-1] - self._imu_init_ts
+                  if self._imu_init_ts is not None and self._kf_times else 0.0)
+        if self._viba_stage < 1 and t_init > 5.0:
+            self._run_full_inertial_ba(kid)
+            self._viba_stage = 1
+        elif self._viba_stage < 2 and t_init > 15.0:
+            self._run_full_inertial_ba(kid)
+            self._viba_stage = 2
+            self._next_scale_ref_ts = self._imu_init_ts + 25.0
+        elif (self.sensor == "mono" and self._viba_stage >= 2
+              and self._next_scale_ref_ts is not None and self._kf_times
+              and self._kf_times[-1] >= self._next_scale_ref_ts):
+            self._refine_scale()
+            self._next_scale_ref_ts += 10.0
 
     def _detect_merge(self, kid: int):
         """Merge detection on keyframe `kid` (reference :1961-1990): the map
@@ -1433,12 +1693,20 @@ class Tracker:
         and the archived map's keyframes, so the tracker's last keyframe (kid
         or a later one) and the chain's bindings keep their values. Keyframe
         ids queued for the mapper stay valid for the same reason."""
-        if not self.map_merger.on_keyframe(self.atlas, kid, self.cam_params):
+        mm = self.map_merger
+        if not mm.on_keyframe(self.atlas, kid, self.cam_params):
             return
         self._abort_gba_and_join()
         self.stats["n_map_merges"] += 1
+        self._inertial_prior = None     # the merge moved poses
         self._n_kf_host = int(self.map.n_kf)
         self._rebuild_place_rec()
+        if self.cfg.use_imu and self.imu_ready:
+            # MergeInertialBA (Optimizer.cc:3985): the archived map's
+            # preintegrations rejoin the registry, and a VI-BA welds the two
+            # inertial chains over the seam
+            self._gap_by_dst.update(mm.last_merge["gaps"])
+            self._merge_inertial_ba(mm.last_merge["kf_cur"], mm.last_merge["kf_old"])
         if not self._in_mapper_thread:
             self.pose = (self.map.kf_R[kid].clone(), self.map.kf_t[kid].clone())
 
@@ -1465,6 +1733,8 @@ class Tracker:
                     self.stats["loop_latency_ms"] = round(
                         (time.perf_counter() - self._kf_wall[kid]) * 1e3, 1)
                 self._chain = None
+                # the marginal prior holds a pose from before the correction
+                self._inertial_prior = None
                 if not self._in_mapper_thread:
                     self.pose = (self.map.kf_R[kid].clone(), self.map.kf_t[kid].clone())
                 self._maybe_start_gba()
@@ -1490,6 +1760,240 @@ class Tracker:
         if not self._in_mapper_thread:
             # copies: the map's rows change in place at the next keyframe
             self.pose = (self.map.kf_R[kf_id].clone(), self.map.kf_t[kf_id].clone())
+
+    # -- the inertial back end (reference :2019-2316) ---------------------------
+    def _window_pres(self, sel, C: int):
+        """The stacked preintegrations of the C - 1 gaps of window `sel`
+        (registered gaps between consecutive members, empty ones elsewhere)
+        and their validity."""
+        pres, valid = [], np.zeros(C - 1, bool)
+        for i in range(len(sel) - 1):
+            src, pre = self._gap_by_dst.get(sel[i + 1], (None, None))
+            if src == sel[i] and pre is not None:
+                pres.append(pre)
+                valid[i] = True
+            else:
+                pres.append(imu_mod.empty_preintegrated(device=self.device))
+        while len(pres) < C - 1:
+            pres.append(imu_mod.empty_preintegrated(device=self.device))
+        return imu_mod.Preintegrated.stack(pres), to_device(valid, self.device)
+
+    def _vi_ba(self, sel, C: int, fixed: np.ndarray, n_iters: int):
+        """`local_inertial_ba` over the keyframes `sel` (padded to C) with
+        the current bias as its start and the keyframes' stored velocities,
+        written into the map; the bias estimate becomes the newest
+        keyframe's. Returns the result."""
+        cfg = self.cfg
+        ids = np.full(C, -1, np.int32)
+        ids[:len(sel)] = sel[:C]
+        pres, pre_valid = self._window_pres(sel, C)
+        idsd = to_device(ids, self.device)
+        fixedd = to_device(fixed, self.device)
+        v_init = self.map.kf_v[torch.clamp(idsd, 0, self.map.max_kf - 1).long()]
+        bg, ba = self.imu_bias
+        R_bc, t_bc = self._tbc
+        res = local_inertial_ba(
+            self.map, idsd, fixedd, pres, pre_valid, bg, ba, self.cam_params, float(cfg.bf),
+            cam_model=cfg.camera.model_id, n_iters=n_iters, n_levels=cfg.orb.n_levels,
+            R_bc=R_bc, t_bc=t_bc, v_init=v_init,
+            v_init_valid=torch.linalg.norm(v_init, dim=-1) > 1e-9,
+            per_kf_bias=bool(cfg.ba.per_kf_bias))
+        self.map = apply_vi_window(self.map, idsd, fixedd, res)
+        self.imu_bias = (res.bg, res.ba) if res.bg.dim() == 1 else \
+            (res.bg[len(sel) - 1], res.ba[len(sel) - 1])
+        return res
+
+    def _run_vi_window(self, kf_id: int, window_cap: Optional[int] = None,
+                       n_iters: Optional[int] = None):
+        """LocalInertialBA over the longest chain of consecutive keyframes
+        ending at kf_id whose gaps all have preintegrations (at most
+        `window_size + 1`, at least 3), its oldest keyframe fixed (reference
+        :2019-2066). Off the mapper thread the tracker's pose, velocity and
+        anchor become the keyframe's."""
+        cfg = self.cfg
+        C = window_cap if window_cap is not None else cfg.ba.window_size + 1
+        sel = self._chain_back(kf_id, C)
+        if len(sel) < 3:
+            return
+        fixed = np.zeros(C, bool)
+        fixed[0] = True
+        res = self._vi_ba(sel, C, fixed, n_iters if n_iters is not None else cfg.ba.n_iters)
+        if not self._in_mapper_thread:
+            v = res.v[len(sel) - 1]
+            R, t = self.map.kf_R[kf_id].clone(), self.map.kf_t[kf_id].clone()
+            self.frame_state_v = v
+            self.pose = (R, t)
+            bg, ba = self.imu_bias
+            self.anchor_state = InertialFrameState(R=R, t=t, v=v, bg=bg, ba=ba)
+
+    def _chain_back(self, k: int, cap: int) -> List[int]:
+        """The longest run of consecutive keyframe ids ending at k whose gaps
+        all have registered preintegrations, oldest first, at most cap."""
+        sel = [k]
+        while len(sel) < cap:
+            src = self._gap_by_dst.get(k, (None, None))[0]
+            if src != k - 1 or k - 1 < 0:
+                break
+            k -= 1
+            sel.append(k)
+        sel.reverse()
+        return sel
+
+    MERGE_VI_HALF = 4   # keyframes on each side of the inertial weld
+
+    def _merge_inertial_ba(self, kf_cur: int, kf_old: int):
+        """MergeInertialBA (Optimizer.cc:3985, reference :2085-2135): a VI-BA
+        over up to MERGE_VI_HALF keyframes of each map's chain at the seam,
+        the current keyframe fixed. Each side keeps its own inertial edges;
+        the seam pair has none (the maps' IMU streams are disjoint)."""
+        sel = self._chain_back(kf_old, self.MERGE_VI_HALF) + \
+            self._chain_back(kf_cur, self.MERGE_VI_HALF)
+        if len(sel) < 3:
+            return
+        C = 2 * self.MERGE_VI_HALF
+        fixed = np.zeros(C, bool)
+        fixed[:len(sel)] = [k == kf_cur for k in sel[:C]]
+        if not fixed.any():
+            fixed[0] = True
+        self._vi_ba(sel, C, fixed, self.cfg.ba.n_iters)
+
+    FULL_VI_WINDOW = 24   # keyframes of VIBA1 / VIBA2's full chain
+
+    def _run_full_inertial_ba(self, kf_id: int, rounds: int = 2):
+        """FullInertialBA (Optimizer.cc:390) as the reference runs it at
+        VIBA1 and VIBA2 (reference :2142-2166): `rounds` of a visual BA over
+        the last FULL_VI_WINDOW keyframes (oldest fixed) followed by the VI
+        pass over the chain ending at kf_id."""
+        cfg = self.cfg
+        C = min(self.FULL_VI_WINDOW, self.map.max_kf)
+        n_kf = self._n_kf_host
+        sel = list(range(max(0, n_kf - C), n_kf))
+        ids = np.full(C, -1, np.int32)
+        ids[:len(sel)] = sel
+        fixed = np.zeros(C, bool)
+        fixed[0] = True
+        idsd, fixedd = to_device(ids, self.device), to_device(fixed, self.device)
+        for _ in range(rounds):
+            if len(sel) >= 2:
+                self.map = _local_ba(self.map, idsd, fixedd, self.cam_params, float(cfg.bf),
+                                     cam_model=cfg.camera.model_id,
+                                     n_ba_points=min(cfg.ba.max_points, self.map.max_mp),
+                                     n_iters=cfg.ba.n_iters)
+            self._run_vi_window(kf_id, window_cap=C)
+        if not self._in_mapper_thread:
+            self.pose = (self.map.kf_R[kf_id].clone(), self.map.kf_t[kf_id].clone())
+
+    def _init_window(self):
+        """The keyframes and gaps of the inertial initialisation: the last
+        len(_kf_preints) + 1 keyframe ids and the gaps' stacked
+        preintegrations, or None when they do not line up."""
+        n_kf = self._n_kf_host
+        k_ids = list(range(max(0, n_kf - len(self._kf_preints) - 1), n_kf))
+        if len(k_ids) < 2 or len(self._kf_preints) < len(k_ids) - 1:
+            return None
+        return k_ids, imu_mod.Preintegrated.stack(self._kf_preints[-(len(k_ids) - 1):])
+
+    def _solve_init(self, k_ids, pres, opt_scale: bool):
+        ids = to_device(np.asarray(k_ids, np.int64), self.device)
+        K = len(k_ids)
+        R_bc, t_bc = self._tbc
+        return inertial_init_optimization(
+            self.map.kf_R[ids], self.map.kf_t[ids],
+            torch.ones(K, dtype=torch.bool, device=self.device), pres,
+            torch.ones(K - 1, dtype=torch.bool, device=self.device), opt_scale=opt_scale,
+            R_bc=R_bc, t_bc=t_bc)
+
+    def _refine_scale(self):
+        """LocalMapping::ScaleRefinement (reference :2169-2196): the
+        initialisation problem with scale over the recent chain; a scale in
+        (0.5, 2) rescales and re-levels the whole map."""
+        win = self._init_window()
+        if win is None or len(win[0]) < 3:
+            return
+        R_wg, bg, ba, s, _ = self._solve_init(*win, opt_scale=True)
+        s_f = float(s)
+        if not 0.5 < s_f < 2.0:
+            return
+        self.map = transform_map(self.map, R_wg.T, torch.zeros(3, device=self.device), s_f)
+        self.imu_bias = (bg, ba)
+        if not self._in_mapper_thread and self.last_kf_id >= 0:
+            k = self.last_kf_id
+            self.pose = (self.map.kf_R[k].clone(), self.map.kf_t[k].clone())
+
+    def _note_kf_imu(self, ts: float):
+        """A keyframe at stamp ts joins the inertial chain (reference
+        :2228-2253): the preintegration since the previous keyframe is kept
+        (in order, and as the gap ending at this keyframe), the stamp and
+        the camera centre recorded, the bad-IMU check run; the next frame
+        solves against the keyframe (no prior), and the keyframe
+        preintegration restarts at the current bias. After 6 gaps over at
+        least 1 s the IMU is initialised."""
+        if not self.cfg.use_imu:
+            return
+        pre = self._pre_kf
+        if pre is not None and pre.dt_host > 0 and self._kf_times:
+            self._kf_preints.append(pre)
+            if self._prev_note_kf_id >= 0:
+                self._gap_by_dst[self.last_kf_id] = (self._prev_note_kf_id, pre)
+        self._prev_note_kf_id = self.last_kf_id
+        self._kf_times.append(ts)
+        if self.pose is not None:
+            R = to_host(self.pose[0]).astype(np.float64)
+            t = to_host(self.pose[1]).astype(np.float64)
+            self._kf_centers.append(-R.T @ t)
+            del self._kf_centers[:-3]
+            self._check_bad_imu()
+        self._inertial_prior = None
+        bg, ba = self.imu_bias
+        self._pre_kf = imu_mod.empty_preintegrated(bg, ba)
+        if (not self.imu_ready and len(self._kf_preints) >= 6
+                and self._kf_times[-1] - self._kf_times[0] >= 1.0):
+            self._initialize_imu()
+
+    def _check_bad_imu(self):
+        """The bad-IMU guard (LocalMapping.cc:140-147, reference
+        :2255-2273): between the initialisation and VIBA2, within 10 s of
+        the initialisation, the last two keyframe gaps moving less than
+        2 cm together leave scale and gravity unobservable; the flag resets
+        the map at the next frame."""
+        if (not self.cfg.use_imu or not self.imu_ready or self._viba_stage >= 2
+                or self._imu_init_ts is None or len(self._kf_centers) < 3
+                or not self._kf_times):
+            return
+        c = self._kf_centers
+        dist = np.linalg.norm(c[-1] - c[-2]) + np.linalg.norm(c[-2] - c[-3])
+        if self._kf_times[-1] - self._imu_init_ts < 10.0 and dist < 0.02:
+            self._bad_imu = True
+
+    def _initialize_imu(self):
+        """InitializeIMU (LocalMapping.cc:1196, reference :2275-2316):
+        gravity, biases and (monocular, with a scale below 0.1 aborting) the
+        scale over the keyframe chain; the map turned into the gravity
+        frame (and scaled), the frame's velocity and the bias set, the loop
+        closer and the map merger switched to their inertial forms, and the
+        pose and anchor re-read from the last keyframe."""
+        win = self._init_window()
+        if win is None:
+            return
+        opt_scale = self.sensor == "mono"
+        R_wg, bg, ba, s, v = self._solve_init(*win, opt_scale=opt_scale)
+        s_f = float(s) if opt_scale else 1.0
+        if opt_scale and s_f < 0.1:
+            return
+        Rgw = R_wg.T
+        self.map = transform_map(self.map, Rgw, torch.zeros(3, device=self.device), s_f)
+        self.imu_bias = (bg, ba)
+        self.frame_state_v = Rgw @ v[-1]
+        self.imu_ready = True
+        if self.loop_closer is not None:
+            self.loop_closer.inertial = True
+        if self.map_merger is not None:
+            self.map_merger.inertial = True
+        self._imu_init_ts = self._kf_times[-1] if self._kf_times else None
+        k = self.last_kf_id
+        self.pose = (self.map.kf_R[k].clone(), self.map.kf_t[k].clone())
+        self.anchor_state = InertialFrameState(R=self.pose[0], t=self.pose[1],
+                                               v=self.frame_state_v, bg=bg, ba=ba)
 
     # -- the pipelined path (reference :876-1281) -----------------------------
     def _process_frame_pipelined(self, img, ts: float) -> dict:

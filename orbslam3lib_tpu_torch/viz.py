@@ -24,15 +24,15 @@ def _arrays(m):
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write (H, W, 3) uint8 RGB to a PNG file."""
-    h, w, _ = rgb.shape
+    """Write (H, W, 3) uint8 RGB, or (H, W) uint8 grayscale, to a PNG file."""
+    h, w = rgb.shape[:2]
     raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data +
                 struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if rgb.ndim == 3 else 0, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
         f.write(chunk(b"IHDR", ihdr))

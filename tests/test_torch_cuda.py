@@ -5,7 +5,10 @@ on a raw radtan and a KB8 rig, compaction and the pipelined tracker on the
 card against the same on the CPU; a chunk's dispatch without a host sync;
 the mapper and GBA threads on the card; the cross-map match, the map merge
 and an atlas round trip on the card; kernel 1 at batch 1 and `System` with
-the monocular and the RGB-D sensor on the card against the CPU (marker
+the monocular and the RGB-D sensor on the card against the CPU; the
+inertial solvers (and the per-frame solve replayed from a CUDA graph), the
+windowed VI-BA, `System("imu_mono")` and the inertial map merge on the card
+against the CPU (marker
 `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
@@ -755,3 +758,297 @@ def test_rgbd_system_on_card_matches_cpu(cuda_device):
     assert card.get_tracking_state() == cpu.get_tracking_state() == 1
     np.testing.assert_allclose(card.tracker.trajectory_centers(),
                                cpu.tracker.trajectory_centers(), rtol=0, atol=5e-3)
+
+
+# -- the inertial sensors ------------------------------------------------------
+
+def _inertial_inputs(seed: int = 3, n: int = 200):
+    """A two-frame inertial problem on the corridor, numpy: the anchor's
+    state at t0 and, for the frames at t1 and t2 (1/15 s apart), each
+    state perturbed, the noisy IMU's samples since the frame before and
+    monocular / stereo observations."""
+    from orbslam3lib_tpu_torch.io.synthetic import corridor_pose_at, synth_imu
+    rng = np.random.default_rng(seed)
+    ts = (1.0, 1.0 + 1 / 15, 1.0 + 2 / 15)
+    cam = np.array([300.0, 300.0, 320.0, 200.0], np.float32)
+
+    def state(t):
+        R_cw, c = corridor_pose_at(np.array([t, t + 1e-4, t - 1e-4]))
+        R = R_cw[0].T.astype(np.float32)
+        v = ((c[1] - c[2]) / 2e-4).astype(np.float32)
+        return dict(R=R, t=(-R @ c[0]).astype(np.float32), v=v,
+                    bg=np.zeros(3, np.float32), ba=np.zeros(3, np.float32))
+
+    frames = []
+    for t_prev, t in zip(ts[:-1], ts[1:]):
+        truth = state(t)
+        cur = dict(truth)
+        cur["t"] = (cur["t"] + rng.normal(size=3) * 0.01).astype(np.float32)
+        cur["v"] = (cur["v"] + rng.normal(size=3) * 0.05).astype(np.float32)
+        imu = synth_imu(t_prev, t, freq=200.0, bg=np.array([0.002, -0.001, 0.0015]),
+                        sigma_g=2.4e-3, sigma_a=2.8e-2, rng=rng)
+        p_c = rng.uniform([-2, -1.5, 2], [2, 1.5, 10], size=(n, 3)).astype(np.float32)
+        p_w = ((p_c - truth["t"]) @ truth["R"]).astype(np.float32)
+        uv = (cam[:2] * p_c[:, :2] / p_c[:, 2:] + cam[2:] + rng.normal(0, 0.4, (n, 2))
+              ).astype(np.float32)
+        st = rng.uniform(size=n) < 0.5
+        obs = dict(p_world=p_w, uv=uv, inv_sigma2=np.ones(n, np.float32),
+                   u_right=np.where(st, uv[:, 0] - 33.0 / p_c[:, 2], 0).astype(np.float32),
+                   is_stereo=st, valid=np.ones(n, bool))
+        frames.append((cur, imu, obs))
+    return state(ts[0]), frames, cam
+
+
+@pytest.mark.cuda
+def test_inertial_solvers_on_card_match_cpu(cuda_device):
+    """The three inertial solvers on the card against the same calls on the
+    CPU: the per-frame 15-dof solve of the first frame and, chained on its
+    state and H, the 30-dof LastFrame solve of the next one (poses,
+    velocities and gyro biases 1e-4, the accel bias 5e-4, inlier masks
+    equal, H_marg 5e-2 of its largest entry), and the IMU
+    initialisation over a chain of 13 keyframe gaps with and without scale
+    (gravity, biases 1e-4; scale and velocities 1e-3). The preintegration
+    runs on each device."""
+    from orbslam3lib_tpu_torch.io.synthetic import corridor_pose_at, synth_imu
+    from orbslam3lib_tpu_torch.tracking import imu as timu, inertial_opt as tio
+    from orbslam3lib_tpu_torch.tracking.pose_opt import PoseObs
+    anchor, frames, cam = _inertial_inputs()
+    out = {}
+    for dev in ("cpu", cuda_device):
+        T = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        S = lambda d: tio.InertialFrameState(**{k: T(v) for k, v in d.items()})  # noqa: E731
+        (c1, (g1, a1, d1), o1), (c2, (g2, a2, d2), o2) = frames
+        pre1, pre2 = (timu.integrate(timu.empty_preintegrated(device=dev), g, a, d, 2.4e-3,
+                                     2.8e-2, 1.9e-5, 3e-3) for g, a, d in ((g1, a1, d1),
+                                                                           (g2, a2, d2)))
+        st1, m1, _, H1 = tio.pose_inertial_optimization(
+            S(c1), S(anchor), pre1, PoseObs(**{k: T(v) for k, v in o1.items()}), T(cam),
+            bf=33.0)
+        st2, m2, _, H2 = tio.pose_inertial_optimization_last_frame(
+            S(c2), st1, H1, pre2, PoseObs(**{k: T(v) for k, v in o2.items()}), T(cam), bf=33.0)
+        ts = np.arange(0.5, 3.8, 0.25)
+        R_cw, c = corridor_pose_at(ts)
+        kf_R = np.stack([r.T for r in R_cw]).astype(np.float32)
+        kf_t = (-np.einsum("kij,kj->ki", kf_R, c)).astype(np.float32)
+        rng = np.random.default_rng(5)
+        pres = timu.Preintegrated.stack([
+            timu.integrate(timu.empty_preintegrated(device=dev),
+                           *synth_imu(float(ts[i]), float(ts[i + 1]), freq=200.0,
+                                      sigma_g=2.4e-3, sigma_a=2.8e-2, rng=rng),
+                           2.4e-3, 2.8e-2) for i in range(len(ts) - 1)])
+        inits = [tio.inertial_init_optimization(
+            T(kf_R), T(kf_t), torch.ones(len(ts), dtype=torch.bool, device=dev), pres,
+            torch.ones(len(ts) - 1, dtype=torch.bool, device=dev), opt_scale=s)
+            for s in (False, True)]
+        out[str(dev)] = (st1, m1, H1, st2, m2, H2, inits)
+    c_, g_ = out["cpu"], out[str(cuda_device)]
+    # one frame pins its accel bias weakly (the direction of H's smallest
+    # eigenvalues): the card's and the CPU's GEMM orders moved it by 1.2e-4
+    # (of 9e-3) while every other field agreed within 1e-4
+    for k in (0, 3):
+        for f, tol in (("R", 1e-4), ("t", 1e-4), ("v", 1e-4), ("bg", 1e-4), ("ba", 5e-4)):
+            np.testing.assert_allclose(getattr(g_[k], f).cpu().numpy(),
+                                       getattr(c_[k], f).numpy(), rtol=0, atol=tol, err_msg=f)
+    for k in (1, 4):
+        assert torch.equal(g_[k].cpu(), c_[k])
+    # H_marg: from the second Gauss-Newton step on, the inertial edge's rows
+    # of J differ between the card and the CPU in their rotation columns by
+    # up to 101 of 4,864 (their iterates 6e-6 apart), which moves H by 2.0%
+    # of its largest entry; at one shared state the two J agree to 1.5e-7
+    for k in (2, 5):
+        Hc = c_[k].numpy()
+        np.testing.assert_allclose(g_[k].cpu().numpy(), Hc, rtol=0, atol=5e-2 * np.abs(Hc).max())
+    for ig, ic in zip(g_[6], c_[6]):
+        for x, y, tol in zip(ig, ic, (1e-4, 1e-4, 1e-4, 1e-3, 1e-3)):
+            np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_graphed_inertial_solve_matches_eager_on_card(cuda_device):
+    """`device.GraphedCall` around the per-frame solve: captured at the
+    first call, then replayed on new inputs (the two frames of
+    `_inertial_inputs` in turn, twice), each equal to the eager solve on the
+    card within 1e-6, with no capture falling back to eager."""
+    from orbslam3lib_tpu_torch.device import GraphedCall
+    from orbslam3lib_tpu_torch.tracking import imu as timu, inertial_opt as tio
+    from orbslam3lib_tpu_torch.tracking.pose_opt import PoseObs
+    anchor, frames, cam = _inertial_inputs(seed=4)
+    T = lambda x: torch.as_tensor(x, device=cuda_device)  # noqa: E731
+
+    def solve(*t):
+        st, mask, n, H = tio.pose_inertial_optimization(
+            tio.InertialFrameState(*t[:5]), tio.InertialFrameState(*t[5:10]),
+            timu.Preintegrated(*t[10:23]), PoseObs(*t[23:29]), t[29], bf=33.0)
+        return (*st, mask, n, H)
+
+    graphed = GraphedCall(solve)
+    for cur, (g, a, d), obs in frames + frames:
+        pre = timu.integrate(timu.empty_preintegrated(device=cuda_device), g, a, d, 2.4e-3,
+                             2.8e-2, 1.9e-5, 3e-3)
+        flat = (*(T(cur[k]) for k in ("R", "t", "v", "bg", "ba")),
+                *(T(anchor[k]) for k in ("R", "t", "v", "bg", "ba")),
+                *(getattr(pre, f) for f in timu.TENSOR_FIELDS),
+                *(T(obs[k]) for k in ("p_world", "uv", "inv_sigma2", "u_right", "is_stereo",
+                                      "valid")), T(cam))
+        want, got = solve(*flat), graphed(*flat)
+        for x, y in zip(got, want):
+            if x.dtype.is_floating_point:
+                np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(), rtol=0,
+                                           atol=1e-6 * max(1.0, float(y.abs().max())))
+            else:
+                assert torch.equal(x, y)
+    assert len(graphed.graphs) == 1 and not graphed.eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_kf_bias", [False, True])
+def test_local_inertial_ba_on_card_matches_cpu(cuda_device, per_kf_bias):
+    """`local_inertial_ba` and `apply_vi_window` on tests/test_vi_ba.py's
+    window (built JAX-free, `torch_parity.vi_window`) on the card against
+    the CPU: poses 1e-4, velocities 1e-3, biases 1e-4; the fixed anchor
+    untouched."""
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    from torch_parity import vi_window
+    arr, pres = vi_window()
+    C = 6
+    out = {}
+    for dev in ("cpu", cuda_device):
+        m = ms.from_numpy(arr, device=dev)
+        ids = torch.arange(C, dtype=torch.int32, device=dev)
+        fixed = torch.zeros(C, dtype=torch.bool, device=dev)
+        fixed[0] = True
+        res = vi_ba.local_inertial_ba(
+            m, ids, fixed, pres.to(dev), torch.ones(C - 1, dtype=torch.bool, device=dev),
+            torch.zeros(3, device=dev), torch.zeros(3, device=dev),
+            torch.tensor([300.0, 300.0, 320.0, 200.0], device=dev), bf=0.0, n_iters=8,
+            per_kf_bias=per_kf_bias)
+        vi_ba.apply_vi_window(m, ids, fixed, res)
+        out[str(dev)] = (res, m)
+    (rc, mc), (rg, mg) = out["cpu"], out[str(cuda_device)]
+    for f, tol in (("kf_R", 1e-4), ("kf_t", 1e-4), ("v", 1e-3), ("bg", 1e-4), ("ba", 1e-4)):
+        np.testing.assert_allclose(getattr(rg, f).cpu().numpy(), getattr(rc, f).numpy(),
+                                   rtol=0, atol=tol, err_msg=f)
+    assert torch.equal(mg.kf_R[0].cpu(), torch.from_numpy(arr["kf_R"][0]))
+
+
+@pytest.mark.cuda
+def test_imu_mono_on_card_matches_cpu(cuda_device):
+    """`System(cfg, "imu_mono")` on the corridor's first 33 frames with its
+    IMU, on the card and on the CPU, the two-view RANSAC on the same host
+    draws: the same states, keyframes and inertial initialisation attempts
+    (two, at the 7th and 8th keyframe, both under the 0.1 scale guard: the
+    reference's own never initialises on this corridor, ROADMAP queue 3),
+    the attempts' scales within 1e-3, camera centres within 1e-3."""
+    from orbslam3lib_tpu_torch.io.synthetic import corridor_imu_stream, render_stereo_sequence
+    from orbslam3lib_tpu_torch.system import System
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    frames, rig, _ = render_stereo_sequence(n_frames=33, dt=1.0 / 15.0, seed=5)
+    ts = np.array([f[2] for f in frames])
+    ci = SlamConfig().imu
+    imu = corridor_imu_stream(ts, ci.noise_gyro, ci.noise_acc, ci.freq,
+                              (0.002, -0.001, 0.0015), (0.02, -0.01, 0.015), seed=0)
+    attempts = {}
+    real = ttr.inertial_init_optimization
+
+    def logged(kf_R, *a, **k):
+        out = real(kf_R, *a, **k)
+        attempts.setdefault(str(kf_R.device), []).append(float(out[3]))
+        return out
+
+    with host_ransac_draws(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttr, "inertial_init_optimization", logged)
+        systems = [System(_mono_config(rig), "imu_mono", device=d, enable_loop_closing=False)
+                   for d in ("cpu", cuda_device)]
+        states = [[s.track_monocular(pair[0], stamp, imu=x)["state"]
+                   for (pair, _, stamp), x in zip(frames, imu)] for s in systems]
+    cpu, card = systems
+    assert states[1] == states[0] and states[0][-1] == 1
+    assert card.get_stats()["n_kf"] == cpu.get_stats()["n_kf"]
+    sc, sg = attempts["cpu"], attempts[str(cuda_device)]
+    assert len(sc) == len(sg) >= 1
+    np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-3)
+    assert card.tracker.imu_ready == cpu.tracker.imu_ready
+    np.testing.assert_allclose(card.tracker.trajectory_centers(),
+                               cpu.tracker.trajectory_centers(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_inertial_merge_on_card_matches_cpu(cuda_device):
+    """The inertial merge (`MapMerger.inertial`: yaw-only weld, scale 1,
+    the [0.9, 1.1] gate) on `torch_parity.merge_ring_maps` with map B in a
+    gravity-aligned world, on the card against the CPU on the same draws:
+    the same decision and remapped registry, integer fields equal, poses
+    and landmarks within 1e-3; kernel 2 ran inside it."""
+    from orbslam3lib_tpu_torch.mapping import loop_closing as lc
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    from orbslam3lib_tpu_torch.models import vocabulary as vb
+    from orbslam3lib_tpu_torch.models.atlas import Atlas
+    from orbslam3lib_tpu_torch.tracking.reloc import PlaceRecognition
+    from torch_parity import merge_ring_maps
+    c_, s_ = np.cos(0.35), np.sin(0.35)
+    G = (np.array([[c_, 0, s_], [0, 1, 0], [-s_, 0, c_]], np.float32),
+         np.array([0.4, 0.1, -0.2], np.float32), 1.0)
+    a, b, _, _, descs = merge_ring_maps(thetas_b=(2.4, 2.8, 3.2, 0.05), G=G)
+    out = {}
+    with host_ransac_draws():
+        for dev in ("cpu", cuda_device):
+            voc = vb.train_vocabulary(descs, k=4, depth=3).to(dev)
+            at = Atlas(32, 1024, 160, device=dev)
+            at.maps = [ms.from_numpy(a, device=dev), ms.from_numpy(b, device=dev)]
+            at.bad, at.current = [False, False], 1
+            db = PlaceRecognition(voc, 32)
+            for i in range(int(at.maps[0].n_kf)):
+                db.add(i, at.maps[0].kf_desc[i], at.maps[0].kf_feat_valid[i])
+            cfg = SlamConfig()
+            cfg.camera.fx = cfg.camera.fy = 300.0
+            cfg.camera.cx, cfg.camera.cy = 320.0, 200.0
+            merger = lc.MapMerger(cfg, consistency_needed=1)
+            merger.inertial = True
+            merger.archive(0, db, gaps={k: (k - 1, None) for k in range(1, 5)})
+            before = cuda_matcher.launches
+            done = merger.on_keyframe(at, 3, torch.from_numpy(RING_CAM).to(dev))
+            out[str(dev)] = (done, at, merger.last_merge, cuda_matcher.launches - before)
+    (dc, ac, lc_, _), (dg, ag, lg, n_launch) = out["cpu"], out[str(cuda_device)]
+    assert dc and dg and n_launch >= 1
+    assert sorted(lg["gaps"]) == sorted(lc_["gaps"]) == [5, 6, 7, 8]
+    for k in ms.FIELDS:
+        x, y = getattr(ag.current_map, k).cpu(), getattr(ac.current_map, k)
+        if x.dtype == torch.float32:
+            np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-3, err_msg=k)
+        else:
+            assert torch.equal(x, y), k
+
+
+@pytest.mark.cuda
+def test_feed_imu_graph_on_card_matches_cpu(cuda_device):
+    """`Tracker.feed_imu` on the card (both preintegrations integrated from a
+    CUDA graph per sample count) against the CPU tracker's on the same
+    corridor samples, chunks of 13, 14 and 13: every field within 1e-5 of
+    its largest entry, the host totals equal, two graphs and no eager
+    fallback."""
+    from orbslam3lib_tpu_torch.io.synthetic import corridor_imu_stream
+    from orbslam3lib_tpu_torch.tracking import imu as timu
+    ts = np.array([0.0, 0.065, 0.135, 0.2])
+    ci = SlamConfig().imu
+    chunks = corridor_imu_stream(ts, ci.noise_gyro, ci.noise_acc, ci.freq, seed=2)[1:]
+    assert [len(c[2]) for c in chunks] == [13, 14, 13]
+    trs = []
+    for dev in ("cpu", cuda_device):
+        cfg = SlamConfig()
+        cfg.use_imu = True
+        tr = Tracker(cfg, "stereo", device=dev, enable_loop_closing=False)
+        for c in chunks:
+            tr.feed_imu(*c)
+            if tr._pre_frame.dt_host > 0.1:      # a frame consumed mid-way
+                tr._pre_frame = None
+        trs.append(tr)
+    cpu, card = trs
+    for name in ("_pre_frame", "_pre_kf"):
+        a, b = getattr(card, name), getattr(cpu, name)
+        assert a.dt_host == b.dt_host
+        for f in timu.TENSOR_FIELDS:
+            y = getattr(b, f).numpy()
+            np.testing.assert_allclose(getattr(a, f).cpu().numpy(), y, rtol=0,
+                                       atol=1e-5 * max(float(np.abs(y).max()), 1e-30), err_msg=f)
+    assert len(card._integrate_pair.graphs) == 2 and not card._integrate_pair.eager

@@ -34,6 +34,7 @@ from orbslam3lib_tpu.mapping import loop_closing as jlc  # noqa: E402
 from orbslam3lib_tpu.models import atlas as jat  # noqa: E402
 from orbslam3lib_tpu.models import map_state as jms  # noqa: E402
 from orbslam3lib_tpu.models import vocabulary as jvb  # noqa: E402
+from orbslam3lib_tpu.tracking import tracker as jtr  # noqa: E402
 from orbslam3lib_tpu.tracking.reloc import PlaceRecognition as JPR  # noqa: E402
 from orbslam3lib_tpu.utils import lie as jlie  # noqa: E402
 from orbslam3lib_tpu_torch.config import SlamConfig as TCfg  # noqa: E402
@@ -201,10 +202,15 @@ def test_merge_refused_when_the_candidate_does_not_fit(maps):
 
 
 def test_inertial_merge_raises():
+    """Setting `MapMerger.inertial` raised while the inertial merge was not
+    ported; it is a plain attribute now, off by default, and the archive
+    keeps a preintegration registry beside each database."""
     mm = tlc.MapMerger(TCfg())
-    mm.inertial = False
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: IMU"):
-        mm.inertial = True
+    assert mm.inertial is False
+    mm.inertial = True
+    assert mm.inertial is True
+    mm.archive(0, object(), gaps={2: (1, None)})
+    assert mm.archives[0]["gaps"] == {2: (1, None)}
 
 
 def _ring_tracker(maps, async_mapping=False):
@@ -334,3 +340,111 @@ def test_welding_ba_anchor_reference_fault(maps):
         assert fixed[ids == 3].all()                       # the current keyframe
         fixed_old = set(ids[old_side & fixed].tolist())
         assert fixed_old == (set() if key == "j" else {kf_old})
+
+
+# -- the inertial merge (tests/test_map_merge.py::_setup_inertial) ------------
+
+def _rot_y(a):
+    c, s_ = np.cos(a), np.sin(a)
+    return np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], np.float32)
+
+
+@pytest.fixture(scope="module")
+def inertial_maps():
+    """Map B in a world turned 0.35 rad about gravity and shifted, scale 1
+    (two gravity-aligned maps), its last keyframe revisiting A's area."""
+    G = (_rot_y(0.35), np.array([0.4, 0.1, -0.2], np.float32), 1.0)
+    return merge_ring_maps(thetas_b=(2.4, 2.8, 3.2, 0.05), G=G)
+
+
+def _gap_pres(n, seed=3):
+    """Preintegrations of 0.25 s corridor gaps for keyframes 1..n-1 of a
+    chain, in both packages: {k: (k - 1, pre)}."""
+    from orbslam3lib_tpu.io.synthetic import synth_imu
+    from orbslam3lib_tpu.tracking import imu as jimu
+    from orbslam3lib_tpu_torch.tracking import imu as timu
+    rng = np.random.default_rng(seed)
+    jg, tg = {}, {}
+    for k in range(1, n):
+        g, a, d = synth_imu(0.25 * k, 0.25 * (k + 1), freq=200.0, sigma_g=2.4e-3,
+                            sigma_a=2.8e-2, rng=rng)
+        pj = jimu.integrate(jimu.empty_preintegrated(), jnp.asarray(g), jnp.asarray(a),
+                            jnp.asarray(d), jnp.ones(len(d), bool), jnp.float32(2.4e-3),
+                            jnp.float32(2.8e-2), jnp.float32(1.9e-5), jnp.float32(3e-3))
+        jg[k] = (k - 1, pj)
+        tg[k] = (k - 1, timu.Preintegrated.from_arrays(pj))
+    return jg, tg
+
+
+def test_inertial_merge_matches_reference(inertial_maps):
+    """`MapMerger.inertial`: the weld is the verified Sim(3)'s yaw alone with
+    scale 1, under the [0.9, 1.1] gate; the archived preintegration registry
+    comes back in merged ids. Both packages on the same draws: the same
+    decision and merged maps (fields as `test_map_merger_matches_reference`),
+    the same remapped registry; every merged-in keyframe keeps its world
+    down axis (1e-3)."""
+    ja, jm, ta, tm = _mergers(inertial_maps, 1)
+    jm.inertial = tm.inertial = True
+    jg, tg = _gap_pres(int(ja.maps[0].n_kf))
+    jm.archives[0]["gaps"], tm.archives[0]["gaps"] = jg, tg
+    with reference_ransac_draws():
+        jd = jm.on_keyframe(ja, 3, jnp.asarray(RING_CAM))
+        td = tm.on_keyframe(ta, 3, torch.from_numpy(RING_CAM))
+    assert jd and td
+    tmap, jmap = ta.current_map, ja.current_map
+    for k in tms.FIELDS:
+        x, y = getattr(tmap, k).numpy(), np.asarray(getattr(jmap, k))
+        if x.dtype == np.float32:
+            np.testing.assert_allclose(x, y, rtol=0, atol=MERGED_TOL, err_msg=k)
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=k)
+    assert tm.last_merge["kf_old"] == jm.last_merge["kf_old"] == 4
+    assert sorted(tm.last_merge["gaps"]) == sorted(jm.last_merge["gaps"]) == [5, 6, 7, 8]
+    assert all(src == dst - 1 for dst, (src, _) in tm.last_merge["gaps"].items())
+    for j in range(4, 9):
+        R_true, _ = _merge_ring_kf_pose_true(j - 4)
+        assert float(tmap.kf_R[j][:, 1] @ torch.from_numpy(R_true[:, 1])) > 0.999
+
+
+def _merge_ring_kf_pose_true(i):
+    from torch_parity import _merge_ring_kf_pose
+    return _merge_ring_kf_pose((0.0, 0.4, 0.8, 1.2, 1.6)[i])
+
+
+def test_merge_inertial_ba_matches_reference(inertial_maps):
+    """The tracker's MergeInertialBA (`_merge_inertial_ba`) on the same
+    merged map, gap registry and bias in both packages: up to
+    MERGE_VI_HALF keyframes of each chain at the seam, the current keyframe
+    fixed, inertial edges inside each chain only. Poses 1e-3 (10
+    Gauss-Newton steps over 120 parameters of an inconsistent synthetic
+    IMU), the fixed keyframe bit-equal, velocities 1e-2 m/s, biases 1e-3."""
+    ja, jm, ta, tm = _mergers(inertial_maps, 1)
+    jm.inertial = tm.inertial = True
+    with reference_ransac_draws():
+        assert jm.on_keyframe(ja, 3, jnp.asarray(RING_CAM))
+    merged = {k: np.asarray(v) for k, v in ja.current_map._asdict().items()}
+    # map B's chain 0..3 and map A's merged chain 4..8
+    jg, tg = _gap_pres(9)
+    trs = []
+    for cfg_cls, make, gaps in (
+            (JCfg, lambda c: jtr.Tracker(c, "stereo", enable_loop_closing=False), jg),
+            (TCfg, lambda c: ttr.Tracker(c, "stereo", enable_loop_closing=False,
+                                         device="cpu"), tg)):
+        cfg = ring_cfg(cfg_cls)
+        cfg.use_imu = True
+        tr = make(cfg)
+        if cfg_cls is JCfg:
+            tr.map = jms.MapState(**{k: jnp.asarray(v) for k, v in merged.items()})
+        else:
+            tr.map = tms.from_numpy(merged)
+        tr._gap_by_dst = {k: v for k, v in gaps.items() if k != 4}   # no edge over the seam
+        tr._merge_inertial_ba(3, 4)
+        trs.append(tr)
+    jt, tt = trs
+    for k, tol in (("kf_R", 1e-3), ("kf_t", 1e-3), ("kf_v", 1e-2), ("kf_bg", 1e-3),
+                   ("kf_ba", 1e-3)):
+        np.testing.assert_allclose(getattr(tt.map, k).numpy(), np.asarray(getattr(jt.map, k)),
+                                   rtol=0, atol=tol, err_msg=k)
+    assert np.array_equal(tt.map.kf_R[3].numpy(), merged["kf_R"][3])
+    for x, y in zip(tt.imu_bias, jt.imu_bias):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=1e-3)

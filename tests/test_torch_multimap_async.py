@@ -33,9 +33,9 @@ def test_mapper_thread_archives_and_merges():
     archived, unchanged_at_merge = [], []
 
     def watch_archive(real):
-        def archive(map_idx, db):
+        def archive(map_idx, db, **kw):
             archived.append((db, db.bow_db.clone(), db.active.clone()))
-            real(map_idx, db)
+            real(map_idx, db, **kw)
         return archive
 
     real_merge = tr.atlas.merge

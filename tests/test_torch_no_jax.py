@@ -30,7 +30,8 @@ def test_port_module_list_covers_the_slice():
                 "mapping.sim3", "mapping.pose_graph", "utils.lie",
                 "utils.sampling", "utils.cameras", "utils.rectify",
                 "utils.timing", "tracking.matching", "viz", "system",
-                "models.atlas", "models.serialization", "mapping.twoview"):
+                "models.atlas", "models.serialization", "mapping.twoview",
+                "tracking.imu", "tracking.inertial_opt", "mapping.vi_ba", "io.euroc"):
         assert f"orbslam3lib_tpu_torch.{mod}" in names
 
 

@@ -8,7 +8,8 @@ the same frames in both; the sensors and options not ported raise
 NotImplementedError, and the ported background mapper and asynchronous
 global BA run; the PNG writer, the map render and the PLY export
 give the same bytes as the reference's `viz` for the same map arrays;
-mono and RGB-D build and track through their entry points;
+every sensor builds and tracks through its entry point, and
+`System("imu_stereo")` is held against the JAX `System` with IMU input;
 `save_atlas` writes the reference's file (each package loads the other's),
 and what each package does after `load_atlas`."""
 import os
@@ -155,34 +156,122 @@ def test_pipeline_drops_on_backpressure(sequence, fast_reference_brief):
 @pytest.mark.parametrize("sensor", [tsys.SENSOR_MONOCULAR, tsys.SENSOR_RGBD,
                                     tsys.SENSOR_IMU_MONOCULAR, tsys.SENSOR_IMU_STEREO])
 def test_unported_sensors_raise(sensor, sequence):
-    """The inertial sensors raise, naming their ROADMAP item; mono and
-    RGB-D (which raised before they were ported) build and track frames
-    through their entry points."""
-    if sensor in (tsys.SENSOR_IMU_MONOCULAR, tsys.SENSOR_IMU_STEREO):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsys.System(TCfg(), sensor, device="cpu")
-        return
+    """Every sensor (each raised before it was ported; the inertial ones
+    until the IMU was) builds and tracks frames through its entry point; the
+    inertial ones set `cfg.use_imu` and take each frame's IMU samples."""
     frames, rig, _ = sequence
-    s = tsys.System(small_cfg(TCfg, rig), sensor, enable_loop_closing=False, device="cpu")
-    for pair, _, stamp in frames[:6]:
-        if sensor == tsys.SENSOR_MONOCULAR:
-            s.track_monocular(pair[0], stamp)
-        else:
+    cfg = small_cfg(TCfg, rig)
+    s = tsys.System(cfg, sensor, enable_loop_closing=False, device="cpu")
+    inertial = sensor in (tsys.SENSOR_IMU_MONOCULAR, tsys.SENSOR_IMU_STEREO)
+    assert cfg.use_imu == inertial
+    imu = _imu_stream(frames) if inertial else [None] * len(frames)
+    for (pair, _, stamp), samples in zip(frames[:6], imu):
+        if sensor in (tsys.SENSOR_MONOCULAR, tsys.SENSOR_IMU_MONOCULAR):
+            s.track_monocular(pair[0], stamp, imu=samples)
+        elif sensor == tsys.SENSOR_RGBD:
             s.track_rgbd(pair[0], np.full(pair[0].shape, 4.0, np.float32), stamp)
+        else:
+            s.track_stereo(pair, stamp, imu=samples)
     s.shutdown()
     assert s.get_stats()["n_frames"] == 6
-    assert s.get_tracking_state() == OK
+    if sensor != tsys.SENSOR_IMU_MONOCULAR:    # monocular initialises later
+        assert s.get_tracking_state() == OK
+    if inertial:
+        assert s.tracker._pre_kf is not None and s.tracker._pre_kf.dt_host > 0
 
 
 def test_unported_options_raise(sequence):
-    """IMU input raises, naming its ROADMAP item; a monocular frame given
-    to a stereo System is refused."""
+    """IMU input (which raised before the IMU was ported) is refused by a
+    System without an IMU, and a monocular frame by a stereo System."""
     _, rig, _ = sequence
     s = tsys.System(small_cfg(TCfg, rig), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="IMU"):
         s.track_stereo(np.zeros((2, 8, 8)), 0.0, imu=(0, 0, 0))
     with pytest.raises(ValueError, match="stereo"):
         s.track_monocular(np.zeros((8, 8)), 0.0)
+
+
+def _imu_stream(frames):
+    """The corridor's IMU between the frames' stamps (chip_smoke.py's phase
+    I stream: cfg.imu's noise, its constant biases, one generator)."""
+    from orbslam3lib_tpu_torch.io.synthetic import corridor_imu_stream
+    ts = np.array([f[2] for f in frames])
+    ci = TCfg().imu
+    return corridor_imu_stream(ts, ci.noise_gyro, ci.noise_acc, ci.freq,
+                               (0.002, -0.001, 0.0015), (0.02, -0.01, 0.015), seed=0)
+
+
+@pytest.fixture(scope="module")
+def imu_sequence():
+    frames, rig, _ = render_stereo_sequence(n_frames=26, dt=1.0 / 15.0, seed=5)
+    return frames, rig, _imu_stream(frames)
+
+
+def test_imu_stereo_system_matches_reference(imu_sequence, fast_reference_brief):
+    """`System(cfg, "imu_stereo").track_stereo(pair, ts, imu=...)` against
+    the JAX `System` on 26 corridor frames: the IMU initialises on the same
+    frame, the same states and keyframes, the poses within 1e-4 (TUM files
+    line by line); the bias estimates within 1e-4."""
+    frames, rig, imu = imu_sequence
+    js = jsys.System(small_cfg(JCfg, rig), jsys.SENSOR_IMU_STEREO, enable_loop_closing=False)
+    ts_ = tsys.System(small_cfg(TCfg, rig), tsys.SENSOR_IMU_STEREO, enable_loop_closing=False,
+                      device="cpu")
+    init = []
+    for (pair, _, stamp), samples in zip(frames, imu):
+        outs = [s.track_stereo(pair, stamp, imu=samples) for s in (js, ts_)]
+        assert outs[0]["state"] == outs[1]["state"] and outs[0].get("kf") == outs[1].get("kf")
+        init.append((js.tracker.imu_ready, ts_.tracker.imu_ready))
+    for s in (js, ts_):
+        s.shutdown()
+    assert all(a == b for a, b in init) and init[-1] == (True, True)
+    assert ts_.get_stats()["n_kf"] == js.get_stats()["n_kf"]
+    tj = np.array([np.concatenate([np.ravel(R), t]) for _, R, t in js.tracker.trajectory])
+    tt = np.array([np.concatenate([np.ravel(R), t]) for _, R, t in ts_.tracker.trajectory])
+    np.testing.assert_allclose(tt, tj, rtol=0, atol=1e-4)
+    for a, b in zip(ts_.tracker.imu_bias, js.tracker.imu_bias):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["use_pipeline", "background_mapping"])
+def test_imu_stereo_system_threads(imu_sequence, mode):
+    """The inertial System on its threads: with `use_pipeline` each frame's
+    IMU samples travel with it to the consumer thread (the same frames
+    dropped under backpressure drop their samples, as the reference's);
+    with `background_mapping` the VI back end runs on the mapper thread.
+    Both track every frame they take, no thread error, every thread
+    joined; each initialises the IMU at the synchronous run's keyframe,
+    and its ATE against the analytic corridor, before and after the
+    initialisation (which turns the world into the gravity frame), is
+    within 2 mm of the synchronous run's (on the mapper thread a keyframe's
+    optimised pose reaches the tracker a frame later: 5.4 mm apart from
+    the synchronous run after alignment, ATE 8.9 mm against 8.9 mm before
+    the initialisation)."""
+    frames, rig, imu = imu_sequence
+    s = tsys.System(small_cfg(TCfg, rig), tsys.SENSOR_IMU_STEREO, enable_loop_closing=False,
+                    device="cpu", **{mode: True})
+    for (pair, _, stamp), samples in zip(frames, imu):
+        s.track_stereo(pair, stamp, imu=samples)
+        if mode == "use_pipeline":
+            s.wait_idle()     # one frame at a time: nothing dropped
+    s.shutdown()
+    st = s.get_stats()
+    assert st["mapper_errors"] == 0 and st["n_frames"] == len(frames)
+    assert s.get_tracking_state() == OK and s.tracker.imu_ready
+    assert s.tracker._mapper_thread is None and s._consumer is None
+    sync = tsys.System(small_cfg(TCfg, rig), tsys.SENSOR_IMU_STEREO, enable_loop_closing=False,
+                       device="cpu")
+    for (pair, _, stamp), samples in zip(frames, imu):
+        sync.track_stereo(pair, stamp, imu=samples)
+    sync.shutdown()
+    from orbslam3lib_tpu_torch.evaluation import ate_rmse
+    from orbslam3lib_tpu_torch.io.synthetic import corridor_pose_at
+    assert s.tracker._imu_init_ts == sync.tracker._imu_init_ts
+    stamps = np.array([f[0] for f in s.tracker.trajectory])
+    pre = stamps < sync.tracker._imu_init_ts
+    for seg in (pre, ~pre):
+        gt = corridor_pose_at(stamps[seg])[1]
+        ates = [ate_rmse(tr.trajectory_centers()[seg], gt) for tr in (s.tracker, sync.tracker)]
+        assert ates[0] <= ates[1] + 0.002, ates
 
 
 def test_background_mapping_runs(systems, sequence):
@@ -248,7 +337,7 @@ def test_viz_bytes_agree(systems, tmp_path):
 
 def _unported_cfg(case):
     cfg = TCfg()
-    if case in ("imu", "mono_imu"):
+    if case == "rgbd_imu":
         cfg.use_imu = True
     elif case in ("radtan_unrectified", "mono_radtan", "rgbd_radtan"):
         cfg.camera.dist = (-0.28, 0.07, 0.0, 0.0, 0.0)
@@ -262,7 +351,7 @@ def _unported_cfg(case):
     return cfg
 
 
-@pytest.mark.parametrize("case", ["mono_imu", "imu", "radtan_unrectified", "fisheye_pinhole",
+@pytest.mark.parametrize("case", ["rgbd_imu", "radtan_unrectified", "fisheye_pinhole",
                                   "fixed_ba_window", "mono_radtan", "mono_kb8", "rgbd_radtan"])
 def test_tracker_unported_configurations_raise(case):
     """Every configuration the port does not have raises, naming its ROADMAP

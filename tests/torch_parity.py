@@ -376,3 +376,55 @@ def merge_ring_maps(thetas_a=(0.0, 0.4, 0.8, 1.2, 1.6),
 
     ident = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 1.0)
     return build(thetas_a, ident), build(thetas_b, G), G, pts, descs
+
+
+def vi_window(C: int = 6, seed: int = 17, F: int = 128, n_pts: int = 256, gap: float = 0.1):
+    """tests/test_vi_ba.py's window built with numpy and the port only (no
+    JAX): C keyframes on the corridor from t = 1 s, `gap` s apart, poses
+    after the first perturbed by 0.03, exact landmarks in front of them and
+    each keyframe's observations; the gaps' preintegrations of the noisy
+    corridor IMU (cfg.imu's noise). Returns (map arrays, the port's stacked
+    preintegrations)."""
+    import torch
+    from orbslam3lib_tpu_torch.io.synthetic import corridor_pose_at, synth_imu
+    from orbslam3lib_tpu_torch.models import map_state as tms
+    from orbslam3lib_tpu_torch.tracking import imu as timu
+    from orbslam3lib_tpu_torch.utils import lie as tl
+    rng = np.random.default_rng(seed)
+    cam = np.array([300.0, 300.0, 320.0, 200.0], np.float32)
+    ts = [1.0 + i * gap for i in range(C)]
+    R_cw, centers = corridor_pose_at(np.asarray(ts))
+    pts = (centers.mean(0) + rng.uniform([-3, -2, -3], [3, 2, 3], size=(n_pts, 3))
+           + np.array([0, 0, 6.0])).astype(np.float32)
+    descs = rng.integers(0, 2, size=(n_pts, 256)).astype(np.int8)
+    m = tms.empty_map(max_kf=16, max_mp=512, n_feat=F)
+    for i in range(C):
+        R = R_cw[i].T.astype(np.float32)
+        t = (-R @ centers[i]).astype(np.float32)
+        p_c = pts @ R.T + t
+        uv = cam[:2] * p_c[:, :2] / p_c[:, 2:] + cam[2:]
+        ok = (p_c[:, 2] > 0.5) & (np.abs(uv[:, 0] - 320) < 315) & (np.abs(uv[:, 1] - 200) < 195)
+        sel = np.nonzero(ok)[0][:F]
+        n = len(sel)
+        xy = np.zeros((F, 2), np.float32)
+        desc = np.zeros((F, 256), np.int8)
+        fv = np.zeros(F, bool)
+        assoc = np.full(F, -1, np.int32)
+        xy[:n], desc[:n], fv[:n], assoc[:n] = uv[sel], descs[sel], True, sel
+        Rn, tn = torch.from_numpy(R), torch.from_numpy(t)
+        if i > 0:
+            dR, dt = tl.se3_exp(torch.from_numpy((rng.normal(size=6) * 0.03).astype(np.float32)))
+            Rn, tn = tl.se3_compose(dR, dt, Rn, tn)
+        tms.insert_keyframe(m, Rn, tn, float(ts[i]), torch.from_numpy(xy),
+                            torch.zeros(F, dtype=torch.int32), torch.from_numpy(desc),
+                            torch.from_numpy(fv), torch.from_numpy(assoc), torch.zeros(F))
+    arr = tms.to_numpy(m)
+    arr["mp_pos"][:n_pts] = pts
+    arr["mp_valid"][:n_pts] = True
+    arr["n_mp"] = np.int32(n_pts)
+    pres = []
+    for i in range(C - 1):
+        g, a, d = synth_imu(ts[i], ts[i + 1], freq=200.0, sigma_g=2.4e-3, sigma_a=2.8e-2, rng=rng)
+        pres.append(timu.integrate(timu.empty_preintegrated(), g, a, d, 2.4e-3, 2.8e-2,
+                                   1.9e-5, 3e-3))
+    return arr, timu.Preintegrated.stack(pres)

@@ -10,6 +10,7 @@ machine).
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase multimap
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase mono [--median-depth]
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase rgbd
+    JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase imu [--imu-jolt 3,0,0]
 
 Phases (frames rendered by the port's numpy renderer, the same frames the
 smoke feeds the port; bench.py's configuration: 640x400, 512 keypoints, 8
@@ -67,6 +68,23 @@ levels, 2x2 pose iterations, loop closing on, `pipeline=0`):
            frames with the depth maps of `io.synthetic.orbit_depth_maps`
            through the reference's `System(cfg, "rgbd").track_rgbd`, with
            the wrong motion prior before frame 150.
+  imu      phase I: stereo-inertial SLAM through the reference's
+           `System(cfg, "imu_stereo").track_stereo(pair, ts, imu=...)` on
+           the corridor of tests/test_slam_modes.py (seed 5) at 640x400,
+           300 frames at 15 FPS, with frames 160-167 flat grey (stamps
+           kept: the tracker dead-reckons on the IMU and inserts keyframes
+           while lost) and a wrong IMU velocity (`frame_state_v` plus
+           `--imu-jolt`, m/s) before frame IMU_JOLT_FRAME, which takes the
+           TrackReferenceKeyFrame fallback. The IMU: `synth_imu` at 200 Hz
+           between the stamps, noise at cfg.imu's discrete sigmas, constant
+           biases IMU_BG / IMU_BA, one `default_rng(0)` through all calls.
+           Prints the IMU initialisation and VIBA1 / VIBA2 frames, the
+           failures, keyframes, fallbacks, relocalisations, the bias
+           estimates (the last frame's, its spread over the last 30
+           frames, the last keyframe's and the median of the keyframes'
+           since the initialisation), the ATEs (trajectory and keyframes,
+           SE(3)) and the largest error of a grey frame
+           (`evaluation.imu_report`).
 Prints one JSON line per phase: trajectory and keyframe ATE (m, SE(3)
 aligned to the analytic orbit), keyframes, loops and their pairs, the loop
 frame, failures and (compact) compactions; production also the windows,
@@ -89,7 +107,8 @@ sys.path.insert(0, ROOT)
 DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
 KB8_K = (0.02, -0.01, 0.003, 0.0)
 DEFAULT_FRAMES = {"pinhole": 400, "radtan": 400, "kb8": 180, "compact": 150,
-                  "production": 376, "multimap": 400, "mono": 130, "rgbd": 180}
+                  "production": 376, "multimap": 400, "mono": 130, "rgbd": 180,
+                  "imu": 300}
 # bench.py's full_slam protocol (bench.py:39-42)
 N_POPULATE, N_WARM, N_WINDOWS, N_WINDOW = 240, 16, 3, 40
 JOLT_FRAME = 370
@@ -101,6 +120,12 @@ MONO_JOLT_FRAME = 100
 RGBD_JOLT_FRAME = 150   # phase R's (chip_smoke.py's RGBD_JOLT_FRAME)
 # phase M's grey window (chip_smoke.py's MULTIMAP_GREY)
 GREY_START, GREY_LEN = 180, 80
+# phase I (chip_smoke.py's IMU_GREY, IMU_JOLT_FRAME, IMU_JOLT_V, IMU_BG, IMU_BA)
+IMU_GREY = (160, 8)
+IMU_JOLT_FRAME = 130
+IMU_JOLT_V = (10.0, 0.0, 0.0)
+IMU_BG = (0.002, -0.001, 0.0015)
+IMU_BA = (0.02, -0.01, 0.015)
 
 
 def bench_config(cfg_cls, rig):
@@ -157,8 +182,12 @@ def main() -> int:
     ap.add_argument("--corridor", action="store_true",
                     help="mono: tests/test_slam_modes.py's corridor (seed 5) "
                          "instead of the orbit")
+    ap.add_argument("--imu-jolt", default=",".join(map(str, IMU_JOLT_V)),
+                    help="imu: the velocity error (m/s, 'x,y,z') before IMU_JOLT_FRAME")
     args = ap.parse_args()
     n = args.frames or DEFAULT_FRAMES[args.phase]
+    if args.phase == "imu":
+        return imu(n, tuple(float(x) for x in args.imu_jolt.split(",")))
     if args.phase == "production":
         return production()
     if args.phase == "mono":
@@ -549,6 +578,85 @@ def rgbd(n: int) -> int:
            "n_kf_alive": int(v.sum()), "n_mp": int(m.n_mp),
            "n_loops": tr.stats["n_loops"], "track_fail": tr.stats["track_fail"],
            "state": int(tr.state), "states_ok": all(x == 1 for x in states)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def imu_sequence(n: int, imu_cfg):
+    """Phase I's frames (f32 stereo pairs, the grey window applied), stamps
+    and IMU stream (`io.synthetic.corridor_imu_stream`)."""
+    from orbslam3lib_tpu_torch.io import synthetic as syn
+    frames, _, _ = syn.render_stereo_sequence(n, syn.StereoRig(), seed=5)
+    imgs = np.stack([f[0] for f in frames])
+    imgs[IMU_GREY[0]:IMU_GREY[0] + IMU_GREY[1]] = 128.0
+    ts = np.array([f[2] for f in frames])
+    imu = syn.corridor_imu_stream(ts, imu_cfg.noise_gyro, imu_cfg.noise_acc, imu_cfg.freq,
+                                  bg=IMU_BG, ba=IMU_BA, seed=0)
+    return imgs, ts, imu
+
+
+def imu(n: int, jolt_v) -> int:
+    """Phase I on the JAX reference (see the module docstring)."""
+    import jax.numpy as jnp
+    from orbslam3lib_tpu import system as jsys
+    from orbslam3lib_tpu.config import SlamConfig
+    from orbslam3lib_tpu.tracking import reloc as jreloc
+    from orbslam3lib_tpu_torch.evaluation import imu_report
+    from orbslam3lib_tpu_torch.io.synthetic import StereoRig
+
+    cfg = bench_config(SlamConfig, StereoRig())
+    t0 = time.time()
+    imgs, ts, imu_data = imu_sequence(n, cfg.imu)
+    render_s = time.time() - t0
+    s = jsys.System(cfg, jsys.SENSOR_IMU_STEREO, enable_loop_closing=True)
+    tr = s.tracker
+    fallbacks = []
+    real_ref = jreloc.track_reference_kf
+    frame = [0]
+
+    def ref_counted(*a, **k):
+        fallbacks.append(frame[0])
+        return real_ref(*a, **k)
+
+    jreloc.track_reference_kf = ref_counted
+    ev = {"imu_init_frame": None, "viba1_frame": None, "viba2_frame": None}
+    states, biases = [], []
+    t1 = time.time()
+    for i in range(n):
+        frame[0] = i
+        if i == IMU_JOLT_FRAME:
+            tr.frame_state_v = tr.frame_state_v + jnp.asarray(jolt_v, jnp.float32)
+        states.append(int(s.track_stereo(imgs[i], float(ts[i]), imu=imu_data[i])["state"]))
+        biases.append(np.concatenate([np.asarray(x, np.float64) for x in tr.imu_bias]))
+        if ev["imu_init_frame"] is None and tr.imu_ready:
+            ev["imu_init_frame"] = i
+        if ev["viba1_frame"] is None and tr._viba_stage >= 1:
+            ev["viba1_frame"] = i
+        if ev["viba2_frame"] is None and tr._viba_stage >= 2:
+            ev["viba2_frame"] = i
+    run_s = time.time() - t1
+    m = tr.map
+    arrays = tuple(np.asarray(x) for x in (m.kf_valid, m.kf_R, m.kf_t, m.kf_ts))
+    grey_ts = ts[IMU_GREY[0]:IMU_GREY[0] + IMU_GREY[1]]
+    bg, ba = (np.asarray(x, np.float64).tolist() for x in tr.imu_bias)
+    last_kf = int(np.flatnonzero(arrays[0])[-1])
+    tail = np.asarray(biases[-30:])
+    out = {"phase": "imu", "frames": n, "jolt_v": list(jolt_v), "grey": list(IMU_GREY),
+           "render_s": round(render_s, 1), "run_s": round(run_s, 1), **ev,
+           "track_fail": tr.stats["track_fail"],
+           "fail_frames": [i for i, x in enumerate(states) if x != jsys.OK],
+           "n_kf_created": tr.stats["n_kf"], "n_kf_alive": int(arrays[0].sum()),
+           "n_reloc": tr.stats["n_reloc"], "n_loops": tr.stats["n_loops"],
+           "n_resets": tr.stats["n_resets"], "n_new_maps": tr.stats["n_new_maps"],
+           "ref_kf_fallback_frames": fallbacks, "state": int(tr.state),
+           "bias_g": bg, "bias_a": ba,
+           "last_kf_bias_g": np.asarray(m.kf_bg)[last_kf].tolist(),
+           "last_kf_bias_a": np.asarray(m.kf_ba)[last_kf].tolist(),
+           "bias_last30_min": tail.min(0).round(6).tolist(),
+           "bias_last30_max": tail.max(0).round(6).tolist(),
+           **imu_report(tr.trajectory, arrays, tr._ts_origin, grey_ts,
+                        (np.asarray(m.kf_bg), np.asarray(m.kf_ba)), tr._imu_init_ts)}
+    s.shutdown()
     print(json.dumps(out), flush=True)
     return 0
 
