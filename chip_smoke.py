@@ -154,9 +154,39 @@ Phases, each fatal on failure:
      per `feed_imu`, device ms and host syncs of the per-frame inertial
      solves, ms of each VI window, of the IMU initialisation and of
      VIBA1 / VIBA2, and the peak device memory.
-  Phases 4-11 each reset the launch counters just before their frames and
-  read them just after; each kernel must launch on each of them (counts in
-  the kernels line, `launches_by_path`). The sequences and the depth maps
+ 12. W, the fixed local-BA window: phase 3's first N_FIXED_WINDOW frames
+     through `System.track_stereo` with `cfg.mapping.covis_ba_window`
+     off (local BA over the last `window_size` keyframes and up to
+     `n_fixed` anchors before them). Checks against the reference's run of
+     the same frames (REF_FIXED_WINDOW, tools/reference_smoke.py --phase
+     fixed_window): state OK, no failure, keyframes within +-2, every local
+     BA from the third keyframe on over the fixed window, kernel 1 once per
+     frame, the ATE within x 1.5 + 5 mm.
+ 13. N, the native BoW database: `native/bow.cpp` built with g++ here (a
+     failed build fails the phase; there is no fallback to the dense
+     database), then on phase 3's final map, over every valid keyframe:
+     the native word ids equal the dense descent on the card, its query
+     scores within NATIVE_SCORE_TOL of the dense database's and its top-3
+     candidates equal; host ms per native query beside the dense query's
+     device ms. Then the native loop probe (`LoopCloser.dispatch_probe`)
+     keyframe by keyframe, each added to the database just before its
+     probe, its packs consumed by `on_probe_result` on a copy of the map
+     (kernel 2 in the verifications, where any).
+ 14. X, the sharded back end and front end on the one card (the sharded
+     arithmetic, not an interconnect): phase 3's final map saved, then
+     `global_bundle_adjust_dist` on it over DeviceMesh(["cuda:0"] * 2), * 4
+     and a ProcessMesh of two spawned gloo ranks on cuda:0 (NCCL takes one
+     rank a card), each within DIST_R_TOL / DIST_T_TOL of the plain
+     `global_bundle_adjust` on the same map; ms per GBA per route and the
+     bytes reduced per iteration. Then `make_sharded_frontend` over
+     DeviceMesh(["cuda:0"] * 2) on N_SHARDED_FRAMES frames against
+     `extract_orb_stereo` + `match_rectified_stereo` frame by frame:
+     keypoints, levels, validity and descriptors equal, u_r and depth within
+     SHARDED_DEPTH_TOL, kernel 1 once per shard.
+  Phases 4-14 each reset the launch counters just before their frames and
+  read them just after; each kernel must launch on each of phases 4-12
+  (counts in the kernels line, `launches_by_path`; N and X check their own
+  launches). The sequences and the depth maps
   render in five processes started before the card is used. Kernel 1 is
   also checked bit-exact and timed at batch 1 (one image's 8 levels, the
   mono and RGB-D frame: `batch1` in its row).
@@ -174,6 +204,7 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import sys
 import tempfile
 import time
@@ -296,6 +327,22 @@ REF_IMU = {"imu_init_frame": 23, "viba1_frame": 103, "viba2_frame": 250, "track_
            "kf_bias_a": (-0.048151, -0.008799, -0.024098),
            "bias_range": ((-0.002167, 0.010571), (-0.007692, 0.004262), (-0.003441, 0.005558),
                           (-0.145872, 0.110124), (-0.155021, 0.063183), (-0.093491, 0.085171))}
+
+# Phase W: the fixed local-BA window on the first N_FIXED_WINDOW pinhole
+# frames; the reference's run (tools/reference_smoke.py --phase
+# fixed_window): 12 keyframes, no failure, ATE 0.025115 m.
+N_FIXED_WINDOW = 150
+REF_FIXED_WINDOW = {"n_kf": 12, "ate_m": 0.025115}
+# Phase N: native scores against the dense database's on the card.
+NATIVE_SCORE_TOL = 1e-5
+# Phase X: the sharded global BA against the plain one (the reference's
+# tolerances between its two solvers, tests/test_dist_ba.py), its LM
+# schedule, and the sharded front end's frames and depth tolerance.
+DIST_R_TOL, DIST_T_TOL = 2e-4, 2e-3
+GBA_ITERS, GBA_CHUNK = 10, 5
+N_SHARDED_FRAMES = 8
+SHARDED_DEPTH_TOL = 1e-4
+GLOO_TIMEOUT_S = 300
 
 FAST_SHAPES = [(400, 640), (320, 512), (240, 384), (196, 314), (160, 256),
                (127, 203), (101, 161), (80, 128)]
@@ -1403,6 +1450,279 @@ def phase_imu(dev, imgs, ts, imu):
     return checks, launches
 
 
+def phase_fixed_window(dev, imgs, ts, rig):
+    """Phase W: the fixed local-BA window (`cfg.mapping.covis_ba_window =
+    False`) through `System.track_stereo`."""
+    from orbslam3lib_tpu_torch.io.synthetic import orbit_tracking_config
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    cfg = orbit_tracking_config(rig)
+    cfg.mapping.covis_ba_window = False
+    windows = []
+    real = ttr._local_ba
+
+    def recorded(m, ids, fixed, *a, **k):
+        windows.append((ids.tolist(), fixed.tolist()))
+        return real(m, ids, fixed, *a, **k)
+    ttr._local_ba = recorded
+    try:
+        sys_, results, frame_ms, launches = run_system(
+            cfg, [(imgs[i], float(ts[i])) for i in range(N_FIXED_WINDOW)], dev)
+    finally:
+        ttr._local_ba = real
+    ate = trajectory_ate(sys_.tracker, ts[:N_FIXED_WINDOW])
+    st = sys_.get_stats()
+    n = st["n_kf"]
+    # local BA i runs when the map holds i + 3 keyframe slots
+    fixed = [[a.tolist() for a in ttr.fixed_ba_window(i + 3, cfg.ba.window_size,
+                                                      cfg.ba.n_fixed)]
+             for i in range(len(windows))]
+    log(path_line("W (fixed local-BA window)", frame_ms, sys_, launches, ate,
+                  f"; local BAs {len(windows)}, last window {windows[-1] if windows else None}"))
+    print(f"W fixed window: median {np.median(frame_ms):.2f} ms, p90 "
+          f"{np.percentile(frame_ms, 90):.2f} ms per frame; {n} KFs; ATE {ate:.6f} m "
+          f"(reference {REF_FIXED_WINDOW['ate_m']})")
+    checks = {
+        "W: state OK, no failure": all(r["state"] == 1 for r in results)
+            and st["track_fail"] == 0,
+        "W: keyframes within +-2 of the reference's": abs(n - REF_FIXED_WINDOW["n_kf"]) <= 2,
+        "W: local BA over the fixed window from the third keyframe on":
+            len(windows) == n - 2 and [list(w) for w in windows] == fixed,
+        "W: kernel 1 once per frame": launches["fast_scores_nms"] == N_FIXED_WINDOW,
+        "W: ATE within the reference's bound": ate_within(ate, REF_FIXED_WINDOW["ate_m"]),
+    }
+    return checks, launches
+
+
+def phase_native(dev, tracker):
+    """Phase N: the native BoW database, built with g++ here, on phase 3's
+    final map: word ids against the dense descent on the card, query
+    scores and top-3 against the dense database, host ms per query beside
+    the dense query's device ms; then the native loop probe keyframe by
+    keyframe (each added just before its probe), its packs consumed by a
+    loop closer on a copy of the map (kernel 2 in any verification)."""
+    from orbslam3lib_tpu_torch import native
+    from orbslam3lib_tpu_torch.mapping.loop_closing import LoopCloser
+    from orbslam3lib_tpu_torch.models import map_state as ms, vocabulary as vb
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
+    from orbslam3lib_tpu_torch.tracking.reloc import PlaceRecognition
+    t0 = time.perf_counter()
+    native.build()                  # a failed build raises: no dense fallback here
+    native.library()
+    build_s = time.perf_counter() - t0
+    m = tracker.map
+    voc = tracker.place_rec.voc
+    K = m.max_kf
+    ids = np.flatnonzero(m.kf_valid.cpu().numpy())
+    desc_h = m.kf_desc.cpu().numpy()
+    valid_h = m.kf_feat_valid.cpu().numpy()
+    nvoc = native.NativeVocabulary(voc)
+    words_equal = all(np.array_equal(nvoc.word_ids(desc_h[k]),
+                                     vb.word_ids(voc, m.kf_desc[k]).cpu().numpy()) for k in ids)
+    nb, dense = native.NativeBowDatabase(voc, K), PlaceRecognition(voc, K)
+    for k in ids:
+        nb.add(int(k), desc_h[k], valid_h[k])
+        dense.add(int(k), m.kf_desc[k], m.kf_feat_valid[k])
+    score_err, top3_equal, host_ms, dev_ms = 0.0, True, [], []
+    for k in ids:
+        t1 = time.perf_counter()
+        ids_n, s_n = nb.query(desc_h[k], valid_h[k], n_best=3)
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ids_d, s_d = dense.query(m.kf_desc[k], m.kf_feat_valid[k], n_best=3)
+        e1.record()
+        torch.cuda.synchronize()
+        dev_ms.append(e0.elapsed_time(e1))
+        all_n = nb.query_scores(desc_h[k], valid_h[k])
+        all_d = torch.where(dense.active, vb.l1_scores(dense.bow_db, vb.bow_from_descriptors(
+            voc, m.kf_desc[k], m.kf_feat_valid[k])), -1.0).cpu().numpy()
+        score_err = max(score_err, float(np.abs(all_n - all_d).max()))
+        top3_equal &= np.array_equal(ids_n, ids_d.cpu().numpy())
+    # the native probe on a copy of the map
+    m2 = ms.clone_map(m)
+    nb_probe = native.NativeBowDatabase(voc, K)
+    lc = LoopCloser(tracker.cfg, nb_probe, fix_scale=True)
+    torch.cuda.synchronize()
+    cuda_fast.reset_count()
+    cuda_matcher.reset_count()
+    packs, probe_ms = [], []
+    for i, k in enumerate(ids):
+        nb_probe.add(int(k), desc_h[k], valid_h[k])
+        t1 = time.perf_counter()
+        pack = lc.dispatch_probe(m2, int(k), i + 1)
+        if pack is None:
+            continue
+        probe_ms.append((time.perf_counter() - t1) * 1e3)
+        packs.append(pack)
+        m2 = lc.on_probe_result(m2, int(k), pack, tracker.cam_params)
+    torch.cuda.synchronize()
+    launches = {"fast_scores_nms": cuda_fast.launches, "knn_match_fused": cuda_matcher.launches}
+    log(f"[smoke] N (native BoW, g++ build {build_s:.2f} s): {len(ids)} keyframes; word ids "
+        f"equal {words_equal}; scores max |native - dense| {score_err:.3g}; top-3 equal "
+        f"{top3_equal}; query: native host {np.median(host_ms):.4f} ms, dense device "
+        f"{np.median(dev_ms):.4f} ms (medians); native probes {len(packs)}, host "
+        f"{np.median(probe_ms) if probe_ms else float('nan'):.3f} ms median, loops "
+        f"{lc.n_loops}, consistent candidate {lc.consistent_candidate}; launches {launches}")
+    print(f"N native BoW: query {np.median(host_ms):.4f} ms host (native) vs "
+          f"{np.median(dev_ms):.4f} ms device (dense); probe {np.median(probe_ms):.3f} ms host")
+    checks = {
+        "N: native word ids equal the dense descent on the card": words_equal,
+        "N: native scores within tolerance of the dense database's":
+            score_err <= NATIVE_SCORE_TOL,
+        "N: native top-3 equal the dense database's": bool(top3_equal),
+        "N: the native probe ran on every keyframe past the gates": len(packs) >= 1
+            and all(len(p) == 3 * lc.PROBE_N + 1 for p in packs),
+    }
+    return checks, launches
+
+
+def _gba_rank(rank: int, port: int, map_path: str, out_path: str, cam, bf: float,
+              device: str) -> None:
+    """One rank of phase X's ProcessMesh global BA (a spawned process): the
+    saved map on `device` (the one card), a gloo group of two."""
+    import torch.distributed as dist
+    from orbslam3lib_tpu_torch.mapping.map_ba import global_bundle_adjust_dist
+    from orbslam3lib_tpu_torch.models.serialization import load_map, save_map
+    from orbslam3lib_tpu_torch.parallel.dist_ba import ProcessMesh
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        m = load_map(map_path, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = global_bundle_adjust_dist(m, torch.as_tensor(cam, device=device),
+                                      ProcessMesh(device=device), bf,
+                                      n_iters=GBA_ITERS, chunk=GBA_CHUNK)
+        torch.cuda.synchronize()
+        ms_ = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            save_map(m, out_path)
+            with open(out_path + ".ms", "w") as f:
+                f.write(repr(ms_))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(dev, tracker, imgs):
+    """Phase X: the landmark-sharded global BA on phase 3's final map, over
+    DeviceMesh(["cuda:0"] * 2), * 4 and a ProcessMesh of 2 spawned gloo
+    ranks on cuda:0, each against the plain `global_bundle_adjust`; and the
+    sharded front end over DeviceMesh(["cuda:0"] * 2) against the per-frame
+    one. One card: this checks the sharded arithmetic, not an
+    interconnect."""
+    import socket
+    from orbslam3lib_tpu_torch.mapping.map_ba import (global_bundle_adjust,
+                                                      global_bundle_adjust_dist)
+    from orbslam3lib_tpu_torch.models import map_state as ms
+    from orbslam3lib_tpu_torch.models.serialization import load_map, save_map
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
+    from orbslam3lib_tpu_torch.ops.extractor import extract_orb_stereo
+    from orbslam3lib_tpu_torch.parallel.dist_ba import DeviceMesh, reduction_numel
+    from orbslam3lib_tpu_torch.parallel.dist_frontend import make_sharded_frontend
+    from orbslam3lib_tpu_torch.tracking.matching import match_rectified_stereo
+    cfg = tracker.cfg
+    cam, bf = tracker.cam_params, float(cfg.bf)
+    card = str(dev)
+    tmp = tempfile.mkdtemp(prefix="smoke_x_")
+    map_path = os.path.join(tmp, "map.npz")
+    save_map(tracker.map, map_path)
+
+    def timed(fn):
+        m = load_map(map_path, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = fn(m)
+        torch.cuda.synchronize()
+        return m, (time.perf_counter() - t0) * 1e3
+
+    plain, plain_ms = timed(lambda m: global_bundle_adjust(m, cam, bf, n_iters=GBA_ITERS,
+                                                           chunk=GBA_CHUNK))
+    routes, gaps = {"plain": plain_ms}, {}
+
+    def gap(m):
+        return (float((m.kf_R - plain.kf_R).abs().max()), float((m.kf_t - plain.kf_t).abs().max()),
+                float((m.mp_pos - plain.mp_pos).abs().max()))
+    for n in (2, 4):
+        got, t = timed(lambda m: global_bundle_adjust_dist(
+            m, cam, DeviceMesh([card] * n), bf, n_iters=GBA_ITERS, chunk=GBA_CHUNK))
+        routes[f"device_mesh_{n}"], gaps[f"device_mesh_{n}"] = t, gap(got)
+    # ProcessMesh: two spawned ranks, both on cuda:0 (NCCL takes one rank a card)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out_path = os.path.join(tmp, "out.npz")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gba_rank, args=(r, port, map_path, out_path,
+                                                 cam.cpu().numpy(), bf, card))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=max(1.0, GLOO_TIMEOUT_S - (time.perf_counter() - t0)))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    gloo_ok = all(p.exitcode == 0 for p in procs) and os.path.exists(out_path)
+    if gloo_ok:
+        got = load_map(out_path, device=dev)
+        with open(out_path + ".ms") as f:
+            routes["process_mesh_2"] = float(f.read())
+        gaps["process_mesh_2"] = gap(got)
+    shutil.rmtree(tmp, ignore_errors=True)
+    C = int(cfg.map.max_kf)
+    bytes_per_iter = 4 * reduction_numel(C)
+    log(f"[smoke] X global BA ({GBA_ITERS} LM steps, {C} camera slots, {cfg.map.max_mp} "
+        f"landmark slots): ms per GBA {routes}; max |dR|, |dt|, |dp| against the plain "
+        f"route {gaps}; reduced per iteration {bytes_per_iter} bytes per shard "
+        f"(S, b, H_cc in f32); gloo ranks' exit codes {[p.exitcode for p in procs]}")
+    print(f"X global BA ms: " + ", ".join(f"{k} {v:.1f}" for k, v in routes.items())
+          + f"; {bytes_per_iter} bytes reduced per iteration per shard")
+
+    # the sharded front end on 8 frames
+    frames = torch.as_tensor(np.asarray(imgs[:N_SHARDED_FRAMES]))
+    ths = torch.full((N_SHARDED_FRAMES,), float(cfg.orb.fast_threshold))
+    front = make_sharded_frontend(DeviceMesh([card] * 2), bf=bf, min_z=float(cfg.stereo.min_z),
+                                  max_kp=cfg.orb.max_kp, n_levels=cfg.orb.n_levels)
+    torch.cuda.synchronize()
+    cuda_fast.reset_count()
+    cuda_matcher.reset_count()
+    t0 = time.perf_counter()
+    out = front(frames, ths)
+    torch.cuda.synchronize()
+    front_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"fast_scores_nms": cuda_fast.launches, "knn_match_fused": cuda_matcher.launches}
+    ints_equal, depth_err = True, 0.0
+    per = N_SHARDED_FRAMES // 2
+    for g in range(N_SHARDED_FRAMES):
+        f, ur, depth = out[g // per]
+        i = g % per
+        ref = extract_orb_stereo(frames[g].to(dev), float(ths[g]), max_kp=cfg.orb.max_kp,
+                                 n_levels=cfg.orb.n_levels)
+        r_ur, r_d = match_rectified_stereo(ref.xy[0], ref.level[0], ref.desc[0], ref.valid[0],
+                                           ref.xy[1], ref.level[1], ref.desc[1], ref.valid[1],
+                                           bf, float(cfg.stereo.min_z), n_levels=cfg.orb.n_levels)
+        ints_equal &= all(torch.equal(getattr(f, n)[i], getattr(ref, n))
+                          for n in ("level", "valid", "desc", "xy"))
+        depth_err = max(depth_err, float((depth[i] - r_d).abs().max()),
+                        float((ur[i] - r_ur).abs().max()))
+    log(f"[smoke] X sharded front end: {N_SHARDED_FRAMES} frames over 2 shards on {card} in "
+        f"{front_ms:.1f} ms; integer outputs equal to the per-frame run {ints_equal}, max "
+        f"|d depth|, |d u_r| {depth_err:.3g}; launches {launches}")
+    checks = {f"X: {k} global BA within the reference's tolerances of the plain one":
+              v[0] <= DIST_R_TOL and v[1] <= DIST_T_TOL for k, v in gaps.items()}
+    checks.update({
+        "X: both DeviceMesh routes and the ProcessMesh route ran":
+            set(gaps) == {"device_mesh_2", "device_mesh_4", "process_mesh_2"},
+        "X: the gloo ranks exited cleanly": gloo_ok,
+        "X: sharded front end's integer outputs equal the per-frame run's": bool(ints_equal),
+        "X: sharded front end's depths within tolerance": depth_err <= SHARDED_DEPTH_TOL,
+        "X: kernel 1 once per shard": launches["fast_scores_nms"] == 2,
+    })
+    return checks, launches
+
+
 def render_depths(n: int):
     """Phase R's depth maps (numpy only; runs in a worker process)."""
     from orbslam3lib_tpu_torch.io.synthetic import StereoRig, orbit_depth_maps
@@ -1654,9 +1974,18 @@ def run(jobs, t_start) -> int:
     c, by_path["I"] = phase_imu(dev, imgs_i, ts_i, imu_i)
     checks.update(c)
     del imgs_i
+    c, by_path["W"] = phase_fixed_window(dev, imgs, ts, rig)
+    checks.update(c)
+    c, by_path["N"] = phase_native(dev, tracker)
+    checks.update(c)
+    c, by_path["X"] = phase_sharded(dev, tracker, imgs)
+    checks.update(c)
     for path, counts in by_path.items():
         for name, n in counts.items():
-            checks[f"{name} launched on the {path} path"] = n >= 1
+            # N launches kernel 2 only in a verification and no kernel 1; X
+            # no kernel 2 (their own checks say what they must launch)
+            if path not in ("N", "X"):
+                checks[f"{name} launched on the {path} path"] = n >= 1
     log(f"[smoke] rendering (in worker processes): radtan {render_d:.1f} s, kb8 "
         f"{render_f:.1f} s, depth maps {render_r:.1f} s, corridor and IMU {render_i:.1f} s; "
         f"command so far "

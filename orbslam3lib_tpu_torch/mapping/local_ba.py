@@ -4,12 +4,15 @@ complement (port of `orbslam3lib_tpu/mapping/local_ba.py`).
 The reference's g2o local BA (Optimizer.cc:1124) as fixed-shape masked
 arrays: per iteration, residuals and Jacobians of all edges in one batched
 pass, scattered into the camera blocks H_cc (C, 6, 6), the landmark blocks
-H_pp (P, 3, 3) and a dense coupling W (P, C, 6, 3) by an accumulating
-`index_put_`, which on the card sorts the edges by their block and sums
-each block in that fixed order: `index_add_`'s atomics summed in another
-order from run to run, which moved the map by ~1e-6 a keyframe and flipped
-a keyframe decision of chip_smoke's phase P at a count gate (its 120 or 121
-populate keyframes; tools/trace_populate.py, PERF.md §6); the
+H_pp (P, 3, 3) and a dense coupling W (P, C, 6, 3) by sums in a fixed
+order: on the card an accumulating `index_put_`, which sorts the edges by
+their block and sums each block in order (`index_add_`'s atomics summed in
+another order from run to run, which moved the map by ~1e-6 a keyframe and
+flipped a keyframe decision of chip_smoke's phase P at a count gate: its
+120 or 121 populate keyframes; tools/trace_populate.py, PERF.md §6); on
+the CPU `index_add_`, which adds in edge order (`index_put_` adds a large
+input atomically from several threads there: two runs of the same frames
+parted from the fourth frame on, by up to 3.9e-4 m after 125); the
 reduced camera system S = H_cc - sum_p W_p H_pp^-1 W_p^T is solved by LU
 (`torch.linalg.solve_ex`, which leaves `info` on the device instead of
 checking it on the host every iteration), landmarks by back-substitution
@@ -92,10 +95,15 @@ def _build_normal_eq(prob: BAProblem, r, Jc, Jp, w):
     wJp = Jp * w[:, None, None]
 
     def seg(x, ids, n):
-        # the same sums in a fixed order on the card (index_add_'s atomics
-        # are not)
-        return torch.zeros((n,) + x.shape[1:], dtype=x.dtype,
-                           device=x.device).index_put_((ids,), x, accumulate=True)
+        out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
+        if x.is_cuda:
+            # the same sums in a fixed order on the card (index_add_'s
+            # atomics are not)
+            return out.index_put_((ids,), x, accumulate=True)
+        # on the CPU it is the other way round: index_put_ accumulates a
+        # large input with atomic adds from several threads, index_add_ in
+        # the order of the edges
+        return out.index_add_(0, ids, x)
 
     Hcc = seg(torch.einsum("eri,erj->eij", wJc, Jc), e_cam, C)
     Hpp = seg(torch.einsum("eri,erj->eij", wJp, Jp), e_pt, P)

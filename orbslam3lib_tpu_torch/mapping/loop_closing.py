@@ -28,8 +28,7 @@ through `merge_world_sim3`), followed by a BA over the seam. Once the
 tracker's IMU is initialised (`MapMerger.inertial`) the weld is yaw-only
 with scale 1 and the scale gate [0.9, 1.1] (MergeLocal2), and the archived
 map's preintegration registry comes back with it for the tracker's
-MergeInertialBA. Not ported: `_probe`'s branch for the native
-inverted-file database.
+MergeInertialBA.
 """
 from __future__ import annotations
 
@@ -442,14 +441,47 @@ class LoopCloser:
     def dispatch_probe(self, m: ms.MapState, kf_id: int, n_kf: int):
         """The candidate probe, queued and not read (reference :699-715): a
         (16,) device tensor [probe (11) | zeros] for `on_probe_result` once it
-        reaches the host, or None when the keyframe fails the probe gates."""
+        reaches the host, or None when the keyframe fails the probe gates.
+        With the native inverted-file database (`native.NativeBowDatabase`)
+        the probe runs on the host at once (`_native_probe`)."""
         if not self.probe_gates_ok(kf_id, n_kf):
             return None
+        if not hasattr(self.pr, "bow_db"):
+            return self._native_probe(m, kf_id)
         voc = self.pr.voc
         out = loop_probe(m, self.pr.bow_db, self.pr.active, voc.centroids, voc.idf,
                          kf_id, k=voc.k, depth=voc.depth, n_best=self.PROBE_N,
                          prev_cand=self.consistent_candidate)
         return torch.cat([out, torch.zeros(16 - out.shape[0], device=out.device)])
+
+    def _native_probe(self, m: ms.MapState, kf_id: int) -> np.ndarray:
+        """The probe against the native database (reference `_probe`'s second
+        branch, :732-775), on the host: a (3 n_best + 1,) pack [ids | scores
+        | covis_w | min_score] with no BoW-match count, so that
+        `on_probe_result` skips that gate as the reference does there.
+        Excluded: covisible keyframes, the 8 nearest ids, keyframes within
+        2 s, culled keyframes. min_score, the worst score of a covisible
+        neighbour (weight >= 15), is 0 when there is none; covis_w is each
+        candidate's covisibility with the previous consistent candidate."""
+        n = self.PROBE_N
+        C = ms.covisibility(m).cpu().numpy()
+        covis = C[kf_id]
+        exclude = covis > 0
+        exclude[kf_id] = True
+        exclude[max(0, kf_id - 8):kf_id + 9] = True
+        ts = m.kf_ts.cpu().numpy()
+        exclude |= np.abs(ts - ts[kf_id]) < 2.0
+        exclude |= ~m.kf_valid.cpu().numpy()
+        desc, valid = m.kf_desc[kf_id], m.kf_feat_valid[kf_id]
+        covis_ids = np.flatnonzero(covis >= 15)
+        covis_ids = covis_ids[covis_ids != kf_id]
+        min_score = float(self.pr.query_scores(desc, valid)[covis_ids].min()) \
+            if len(covis_ids) else 0.0
+        ids, scores = self.pr.query(desc, valid, exclude_mask=exclude, n_best=n)
+        prev = self.consistent_candidate
+        cw = C[prev][np.clip(ids, 0, m.max_kf - 1)] if prev >= 0 else np.zeros(n, np.float32)
+        return np.concatenate([ids.astype(np.float32), scores, cw.astype(np.float32),
+                               [min_score]]).astype(np.float32)
 
     def on_probe_result(self, m: ms.MapState, kf_id: int, vals,
                         cam_params) -> ms.MapState:

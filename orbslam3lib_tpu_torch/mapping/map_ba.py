@@ -1,11 +1,10 @@
 """Map-level bundle adjustment: the keyframe-window gather and scatter
 around `local_ba.bundle_adjust` (port of
 `orbslam3lib_tpu/mapping/map_ba.py`), the chunked global BA, its
-single-device route (`global_bundle_adjust_auto`) and the merge of an
-asynchronous global BA into a map that moved on (`merge_gba_result`).
-
-The landmark-sharded `global_bundle_adjust_dist` waits for the port of
-`parallel/` (ROADMAP queue 1, item 6: dist_ba).
+landmark-sharded form (`global_bundle_adjust_dist`, over
+`parallel/dist_ba.py`), the route between them
+(`global_bundle_adjust_auto`) and the merge of an asynchronous global BA
+into a map that moved on (`merge_gba_result`).
 """
 from __future__ import annotations
 
@@ -117,8 +116,7 @@ def global_bundle_adjust(m: ms.MapState, cam_params, bf: float,
     RunGlobalBundleAdjustment, LoopClosing.cc:2268). In place.
 
     This is the reference's single-device route of
-    `global_bundle_adjust_auto`; the sharded one waits for the port of
-    `parallel/`."""
+    `global_bundle_adjust_auto`."""
     K = m.max_kf
     ii = torch.arange(K, dtype=torch.int32, device=m.kf_R.device)
     window_ids = torch.where(m.kf_valid, ii, -1)
@@ -136,22 +134,73 @@ def global_bundle_adjust(m: ms.MapState, cam_params, bf: float,
     return m
 
 
+def gba_mesh(device: torch.device):
+    """The mesh `global_bundle_adjust_auto` shards over: every visible card,
+    the map's first, when the map is on a card and the process sees more
+    than one (the reference's mesh over `jax.devices()`); else None."""
+    from ..parallel.dist_ba import DeviceMesh
+    device = torch.device(device)
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n <= 1:
+        return None
+    first = device.index or 0
+    return DeviceMesh([f"cuda:{first}"] + [f"cuda:{i}" for i in range(n) if i != first])
+
+
 def global_bundle_adjust_auto(m: ms.MapState, cam_params, bf: float,
                               cam_model: int = 0, n_iters: int = 10, chunk: int = 5,
                               n_ba_points: Optional[int] = None,
                               should_abort: Optional[Callable[[], bool]] = None
                               ) -> ms.MapState:
-    """Global BA on what the process has (reference :144-163): one card (or
-    the CPU) takes `global_bundle_adjust`. A process that sees more than one
-    card raises: the landmark-sharded route is not ported yet, and the port
-    does not fall back to one card quietly."""
-    if m.kf_R.device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} cards: the sharded global BA is not ported "
-            "(ROADMAP queue 1, item 6: parallel/dist_ba.py and global_bundle_adjust_dist)")
+    """Global BA on what the process has (reference :144-163): with more
+    than one card the landmark-sharded `global_bundle_adjust_dist` over
+    `gba_mesh`, with one card (or on the CPU) `global_bundle_adjust`."""
+    mesh = gba_mesh(m.kf_R.device)
+    if mesh is not None:
+        return global_bundle_adjust_dist(m, cam_params, mesh, bf, cam_model=cam_model,
+                                         n_iters=n_iters, chunk=chunk,
+                                         n_ba_points=n_ba_points, should_abort=should_abort)
     return global_bundle_adjust(m, cam_params, bf, cam_model=cam_model, n_iters=n_iters,
                                 chunk=chunk, n_ba_points=n_ba_points,
                                 should_abort=should_abort)
+
+
+def global_bundle_adjust_dist(m: ms.MapState, cam_params, mesh, bf: float,
+                              cam_model: int = 0, n_iters: int = 10, chunk: int = 5,
+                              n_ba_points: Optional[int] = None,
+                              should_abort: Optional[Callable[[], bool]] = None
+                              ) -> ms.MapState:
+    """Full-map BA with the landmarks sharded over `mesh` (a
+    `parallel.dist_ba.DeviceMesh` or `ProcessMesh`; reference :166-205):
+    the problem is gathered and partitioned once, the LM schedule runs in
+    chunks of `chunk` iterations of `dist_bundle_adjust` with
+    `should_abort` polled between them (each chunk starts its chi2 gate
+    afresh, as the reference's), then the landmark padding is dropped and
+    the result scattered back into `m` (in place). The first valid keyframe
+    is the gauge, as in `global_bundle_adjust`."""
+    from ..parallel.dist_ba import dist_bundle_adjust, partition_problem
+    K = m.max_kf
+    dev = m.kf_R.device
+    ii = torch.arange(K, dtype=torch.int32, device=dev)
+    window_ids = torch.where(m.kf_valid, ii, -1)
+    fixed = ii == torch.argmax(m.kf_valid.to(torch.int32))
+    if n_ba_points is None:
+        n_ba_points = m.max_mp
+    prob, ids, sel_ids, cam_ok, pt_ok = _gather_window_problem(
+        m, window_ids, fixed, bf, n_ba_points)
+    probd = partition_problem(prob, mesh.size)
+    done = 0
+    while done < n_iters:
+        it = min(chunk, n_iters - done)
+        cam_R, cam_t, points, _ = dist_bundle_adjust(probd, cam_params, mesh,
+                                                     cam_model=cam_model, bf=bf, n_iters=it)
+        probd = probd._replace(cam_R=cam_R.to(dev), cam_t=cam_t.to(dev),
+                               points=points.to(dev))
+        done += it
+        if should_abort is not None and should_abort():
+            break
+    return _scatter_window_result(m, probd.cam_R, probd.cam_t, probd.points[:n_ba_points],
+                                  ids, sel_ids, cam_ok, pt_ok, fixed)
 
 
 def merge_gba_result(m_now: ms.MapState, gba_R, gba_t, gba_mp_pos, n_kf0: int,

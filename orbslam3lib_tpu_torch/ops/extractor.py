@@ -8,7 +8,7 @@ and dtype for dtype.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import List
 
 import numpy as np
@@ -55,7 +55,9 @@ def extract_orb_stereo(img_pair: torch.Tensor, threshold: float,
     """Extract ORB features from a batch of grayscale images.
 
     img_pair: (B, H, W) uint8/float32 (B = 2 for a stereo pair).
-    threshold: FAST score threshold (host-controlled, ThresholdController).
+    threshold: FAST score threshold (host-controlled, ThresholdController),
+    or a (B,) tensor of one threshold per image (the sharded front end's
+    frames, each with its own).
     Returns Features with a leading dim B; with `return_canvas` also the
     (B, L, H, W) zero-padded pyramid canvases (for the SAD stereo refinement).
     """
@@ -79,6 +81,8 @@ def extract_orb_stereo(img_pair: torch.Tensor, threshold: float,
     x = torch.cat(cand_x, dim=1)
     l = torch.cat(cand_l, dim=1)
 
+    if torch.is_tensor(threshold) and threshold.dim() == 1:
+        threshold = threshold[:, None]
     valid = s > threshold
     s_masked = torch.where(valid, s, torch.zeros_like(s))
     k = min(max_kp, s.shape[1])
@@ -114,6 +118,21 @@ def extract_orb_stereo(img_pair: torch.Tensor, threshold: float,
     if return_canvas:
         return feats, canvas
     return feats
+
+
+def extract_orb(img: torch.Tensor, threshold: float,
+                max_kp: int = MAX_KP_DEFAULT,
+                n_levels: int = pyramid.N_LEVELS,
+                return_canvas: bool = False):
+    """ORB features of one (H, W) image (reference :92-157): Features
+    without an eye axis; with `return_canvas` also its (L, H, W) pyramid
+    canvas. A batch of one through `extract_orb_stereo`: kernel 1 launches
+    once per call on the card."""
+    out = extract_orb_stereo(img[None], threshold, max_kp=max_kp,
+                             n_levels=n_levels, return_canvas=return_canvas)
+    feats, canvas = out if return_canvas else (out, None)
+    one = Features(*(getattr(feats, f.name)[0] for f in fields(Features)))
+    return (one, canvas[0]) if return_canvas else one
 
 
 def extract_orb_mono(img: torch.Tensor, threshold: float,

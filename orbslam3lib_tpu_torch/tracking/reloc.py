@@ -8,12 +8,15 @@ frame's inliers fall below `min_inliers`; BoW relocalisation
 refine), with the reference's batched P6P DLT sweep in place of MLPnP's
 sequential RANSAC; and the dense BoW keyframe database `PlaceRecognition`,
 which the back end fills on every keyframe. The descriptor matching of
-both paths is kernel 2 on the card. The native inverted-file database is
-not ported (the tracker uses the dense one, as the reference's).
+both paths is kernel 2 on the card. `make_place_recognition` builds the
+native inverted-file database (`native/`) when asked and able, the dense
+one otherwise; the tracker asks for the dense one, as the reference's.
 """
 from __future__ import annotations
 
+import logging
 import math
+import os
 
 import torch
 
@@ -28,6 +31,8 @@ from ..utils.sampling import ransac_indices
 from ..utils.smallmat import det3
 from .matching import match_descriptors_ratio, rotation_consistency, search_by_projection
 from .pose_opt import PoseObs, pose_optimization
+
+_log = logging.getLogger(__name__)
 
 
 def _p6p_dlt(p3d: torch.Tensor, xy_norm: torch.Tensor):
@@ -188,9 +193,22 @@ def detect_reloc_candidates(m: MapState, bow_db, active, q, n_best: int = 3,
     return ids.to(torch.int32), top_acc
 
 
-def make_place_recognition(voc: vb.Vocabulary, max_kf: int) -> "PlaceRecognition":
-    """The keyframe database the tracker uses: the dense one (the reference
-    calls its factory with `prefer_native=False`, tracker.py:653)."""
+def make_place_recognition(voc: vb.Vocabulary, max_kf: int, prefer_native: bool = True):
+    """A keyframe database (reference :239-256): the native C++ inverted
+    file (`native.NativeBowDatabase`) when `prefer_native`, the environment
+    does not set ORBSLAM3_TPU_NATIVE_BOW=0 (the reference's switch) and the
+    library builds and loads; else the dense `PlaceRecognition`. Both have
+    `add`, `query` and `.voc`. Why the native route was not taken is
+    logged. The tracker asks for the dense one (`prefer_native=False`),
+    wherever the reference's does (tracker.py:653, 707, 1651, 1670)."""
+    if prefer_native and os.environ.get("ORBSLAM3_TPU_NATIVE_BOW", "1") != "0":
+        from .. import native
+        if native.load_library() is not None:
+            return native.NativeBowDatabase(voc, max_kf)
+        _log.warning("native BoW database unavailable, using the dense one: %s",
+                     native.LOAD_ERROR)
+    elif prefer_native:
+        _log.info("ORBSLAM3_TPU_NATIVE_BOW=0: using the dense BoW database")
     return PlaceRecognition(voc, max_kf)
 
 

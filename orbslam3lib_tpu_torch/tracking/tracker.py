@@ -126,9 +126,11 @@ resets the map. The pipelined path does not run with an IMU (reference
 :807): such a tracker runs synchronously. Nothing catches a failed inertial
 solve: its state becomes the frame's.
 
-What this slice leaves out, each raising `NotImplementedError` that names
-its ROADMAP item where a configuration asks for it: the fixed local-BA
-window, and an IMU on the RGB-D sensor (the reference has none).
+`cfg.mapping.covis_ba_window = False` takes the fixed local-BA window
+(`fixed_ba_window`) in place of the covisibility one. Configurations
+outside the reference's own contract raise `NotImplementedError`
+(`check_ported`): an IMU on the RGB-D sensor, mono or RGB-D on a distorted
+camera, a distorted stereo rig without rectify or fisheye.
 """
 from __future__ import annotations
 
@@ -467,37 +469,51 @@ SENSORS = ("stereo", "mono", "rgbd")
 
 
 def check_ported(cfg: SlamConfig, sensor: str) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for a sensor or
-    option the port does not have yet (ValueError for an unknown sensor).
-    `rectify` and `fisheye` describe a stereo rig; mono and RGB-D ignore
-    them, as the reference does, and take an undistorted pinhole camera."""
+    """Raise NotImplementedError for a sensor or option outside the
+    reference's own contract (ValueError for an unknown sensor). `rectify`
+    and `fisheye` describe a stereo rig; mono and RGB-D ignore them, as the
+    reference does, and take an undistorted pinhole camera."""
     if sensor not in SENSORS:
         raise ValueError(f"unknown sensor {sensor!r}; the tracker takes {SENSORS}")
     if cfg.use_imu and sensor == "rgbd":
         raise NotImplementedError(
             "an IMU goes with the stereo or the monocular sensor (the reference "
-            "has no inertial RGB-D sensor; ROADMAP queue 1, item 7)")
+            "has no inertial RGB-D sensor)")
     if sensor != "stereo" and cfg.camera.model_id != cameras.PINHOLE:
         # the two-view reconstruction projects through the pinhole model
         # (as the reference's, twoview.py:108), and the RGB-D virtual right
         # coordinate u - bf / z assumes undistorted pixels
         raise NotImplementedError(
-            f"the {sensor} sensor takes an undistorted pinhole camera (ROADMAP "
-            "queue 1, item 7: mono and RGB-D on a distorted camera)")
+            f"the {sensor} sensor takes an undistorted pinhole camera, as in the "
+            "reference (its two-view reconstruction is pinhole-only)")
     if sensor == "stereo" and not (cfg.stereo.fisheye or cfg.stereo.rectify) \
             and cfg.camera.model_id != cameras.PINHOLE:
         raise NotImplementedError(
-            "a distorted stereo rig needs cfg.stereo.rectify or cfg.stereo.fisheye "
-            "(ROADMAP queue 1, item 7: distorted rig without rectify or fisheye)")
+            "a distorted stereo rig needs cfg.stereo.rectify or cfg.stereo.fisheye, "
+            "as in the reference (config.from_yaml sets rectify on every distorted "
+            "pinhole stereo rig)")
     if sensor == "stereo" and cfg.stereo.fisheye \
             and cfg.camera.model_id != cameras.KANNALA_BRANDT:
         raise NotImplementedError(
-            "the fisheye stereo path is the two-camera Kannala-Brandt rig "
-            "(ROADMAP queue 1, item 7: distorted rig without rectify or fisheye)")
-    if not cfg.mapping.covis_ba_window:
-        raise NotImplementedError(
-            "only the covisibility local-BA window is ported (ROADMAP queue 1, "
-            "item 7: fixed local-BA window)")
+            "the fisheye stereo path is the two-camera Kannala-Brandt rig, as in "
+            "the reference")
+
+
+def fixed_ba_window(n_kf: int, window_size: int, n_fixed: int):
+    """The fixed local-BA window (reference :2208-2218): the last
+    `window_size` keyframe slots and up to `n_fixed` anchors before them,
+    keyframe 0 when none precede them (it is then in the window as well).
+    Returns (ids (C,) int32, -1-padded; fixed (C,) bool) on the host, C =
+    window_size + n_fixed."""
+    C = window_size + n_fixed
+    ids = np.full(C, -1, np.int32)
+    fixed = np.zeros(C, bool)
+    lo = max(0, n_kf - window_size)
+    anchors = list(range(max(0, lo - n_fixed), lo)) or [0]
+    sel = anchors + list(range(lo, n_kf))
+    ids[:len(sel)] = sel
+    fixed[:len(anchors)] = True
+    return ids, fixed
 
 
 def _compose_rows(packs: np.ndarray, dR: np.ndarray, dt: np.ndarray) -> None:
@@ -1308,7 +1324,8 @@ class Tracker:
         in flight, the buffered frames, the unread probes and the keyframes
         still queued for the mapper belong to the old map and are dropped."""
         if self.place_rec is not None:
-            self.place_rec = make_place_recognition(self.place_rec.voc, self.cfg.map.max_kf)
+            self.place_rec = make_place_recognition(self.place_rec.voc, self.cfg.map.max_kf,
+                                                   prefer_native=False)
             if self.loop_closer is not None:
                 n_loops = self.loop_closer.n_loops
                 self.loop_closer = LoopCloser(self.cfg, self.place_rec,
@@ -1575,7 +1592,8 @@ class Tracker:
 
     def _bow_database(self, m: ms.MapState):
         """A BoW database of the valid keyframes of map `m`."""
-        db = make_place_recognition(self.place_rec.voc, self.cfg.map.max_kf)
+        db = make_place_recognition(self.place_rec.voc, self.cfg.map.max_kf,
+                                    prefer_native=False)
         for k in np.flatnonzero(m.kf_valid.cpu().numpy()):
             db.add(int(k), m.kf_desc[int(k)], m.kf_feat_valid[int(k)])
         return db
@@ -1606,7 +1624,7 @@ class Tracker:
             d = desc_bits.cpu().numpy()
             extra = np.random.default_rng(0).integers(0, 2, size=(2048, 256)).astype(np.int8)
             voc = train_vocabulary(np.concatenate([d, extra]), k=8, depth=3).to(self.device)
-        self.place_rec = make_place_recognition(voc, self.cfg.map.max_kf)
+        self.place_rec = make_place_recognition(voc, self.cfg.map.max_kf, prefer_native=False)
         if self.enable_loop_closing:
             # stereo and RGB-D: depth fixes the scale; monocular loops
             # solve a free-scale Sim(3) (reference :655-657)
@@ -1744,15 +1762,21 @@ class Tracker:
         return deltas
 
     def _run_local_ba(self, kf_id: int):
-        """Local BA over the covisibility window, its oldest members fixed
-        (reference :2197-2225), from the third keyframe on; off the mapper
-        thread the tracker's pose becomes the keyframe's optimised one."""
+        """Local BA from the third keyframe on (reference :2197-2225), over
+        the covisibility window with its oldest members fixed, or with
+        `cfg.mapping.covis_ba_window` off over the fixed window
+        (`fixed_ba_window`); off the mapper thread the tracker's pose becomes
+        the keyframe's optimised one."""
         cfg = self.cfg
         if self._n_kf_host < 3:
             return
-        ids, fixed = lm_ops.covis_ba_window(
-            self.map, torch.full((), kf_id, dtype=torch.int32, device=self.device),
-            n_win=cfg.ba.window_size, n_fixed=cfg.ba.n_fixed)
+        if cfg.mapping.covis_ba_window:
+            ids, fixed = lm_ops.covis_ba_window(
+                self.map, torch.full((), kf_id, dtype=torch.int32, device=self.device),
+                n_win=cfg.ba.window_size, n_fixed=cfg.ba.n_fixed)
+        else:
+            ids, fixed = (to_device(a, self.device) for a in fixed_ba_window(
+                self._n_kf_host, cfg.ba.window_size, cfg.ba.n_fixed))
         self.map = _local_ba(self.map, ids, fixed, self.cam_params, float(cfg.bf),
                              cam_model=cfg.camera.model_id,
                              n_ba_points=cfg.ba.max_points, n_iters=cfg.ba.n_iters)
@@ -2328,3 +2352,16 @@ class Tracker:
         """(T, 3) camera centres of the tracked frames."""
         out = [-R.T @ t for _, R, t in self.trajectory]
         return np.stack(out) if out else np.zeros((0, 3))
+
+    def trajectory_poses(self) -> list:
+        """[(timestamp, (R, t))] of the tracked frames, world to camera."""
+        return [(ts, (R, t)) for ts, R, t in self.trajectory]
+
+
+class StereoTracker(Tracker):
+    """`Tracker(cfg, "stereo", ...)` with loop closing off unless asked for
+    (the reference's alias, tracker.py:2329-2333)."""
+
+    def __init__(self, cfg: SlamConfig, **kw):
+        kw.setdefault("enable_loop_closing", False)
+        super().__init__(cfg, sensor="stereo", **kw)

@@ -15,6 +15,12 @@ import torch.autograd.forward_ad as fwad
 from .smallmat import inv3
 
 _EPS = 1e-8
+# below this theta^2 the coefficients of the exp maps and Jacobians take
+# their series (the reference takes them only below _EPS: its f32
+# derivatives are noise for theta in ~[1e-4, 1e-1], ROADMAP queue 3)
+_SERIES_THETA2 = 0.09
+# the dtype of `_sim3_W`'s coefficients (None: the input's, the reference's)
+_SIM3_W_DTYPE = torch.float64
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -34,13 +40,18 @@ def vee(W: torch.Tensor) -> torch.Tensor:
 
 
 def _sin_cos_coeffs(theta2: torch.Tensor):
-    """(sin t/t, (1-cos t)/t^2, (t - sin t)/t^3) with small-angle series."""
+    """(sin t/t, (1-cos t)/t^2, (t - sin t)/t^3), by their Taylor series in
+    theta^2 below `_SERIES_THETA2`: there the f32 closed forms cancel, and
+    their forward-mode derivatives are rounding noise (the series are exact
+    to f32 over that range; `tools/lie_small_angle.py` measures both)."""
     theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
-    small = theta2 < _EPS
-    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
-    C = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
-                    (theta - torch.sin(theta)) / (theta2 * theta))
+    small = theta2 < _SERIES_THETA2
+    A = torch.where(small, 1.0 + theta2 * (-1.0 / 6.0 + theta2 * (
+        1.0 / 120.0 - theta2 / 5040.0)), torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 + theta2 * (-1.0 / 24.0 + theta2 * (
+        1.0 / 720.0 - theta2 / 40320.0)), (1.0 - torch.cos(theta)) / theta2)
+    C = torch.where(small, 1.0 / 6.0 + theta2 * (-1.0 / 120.0 + theta2 * (
+        1.0 / 5040.0 - theta2 / 362880.0)), (theta - torch.sin(theta)) / (theta2 * theta))
     return A, B, C
 
 
@@ -69,8 +80,9 @@ def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     theta2 = torch.sum(w * w, dim=-1)
     theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
     W = hat(w)
-    small = theta2 < _EPS
-    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+    small = theta2 < _SERIES_THETA2
+    coef = torch.where(small, 1.0 / 12.0 + theta2 * (1.0 / 720.0 + theta2 * (
+        1.0 / 30240.0 + theta2 / 1209600.0)),
                        1.0 / theta2 - (1.0 + torch.cos(theta))
                        / (2.0 * theta * torch.sin(theta) + _EPS))
     return _eye_like(W) + 0.5 * W + coef[..., None, None] * (W @ W)
@@ -164,11 +176,18 @@ def se3_apply(R, t, p):
 
 def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """The Sim(3) W matrix of sim3_exp (t = W rho): (..., 3) x (...,) ->
-    (..., 3, 3), closed forms per small-angle / small-scale regime."""
+    (..., 3, 3), closed forms per small-angle / small-scale regime. Their
+    cancellations leave f32 derivatives of rounding noise for theta or sigma
+    in ~[1e-4, 1e-1] (the reference's fault, as in `_sin_cos_coeffs`; two
+    variables have no short series), so the coefficients are computed in
+    `_SIM3_W_DTYPE` (f64) and rounded once."""
+    dtype = phi.dtype
+    W = hat(phi)
+    if _SIM3_W_DTYPE is not None:
+        phi, sigma = phi.to(_SIM3_W_DTYPE), sigma.to(_SIM3_W_DTYPE)
     theta2 = torch.sum(phi * phi, dim=-1)
     theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
     s = torch.exp(sigma)
-    W = hat(phi)
     small_s = torch.abs(sigma) < 1e-4
     small_t = theta < 1e-4
     sig = torch.where(small_s, torch.ones_like(sigma), sigma)  # safe denominators
@@ -191,6 +210,7 @@ def _sim3_W(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
                      torch.where(small_t, cW_st, cW_gen))
     cW2 = torch.where(small_s, torch.where(small_t, sixth, cW2_ss),
                       torch.where(small_t, cW2_st, cW2_gen))
+    cI, cW, cW2 = cI.to(dtype), cW.to(dtype), cW2.to(dtype)
     return (cI[..., None, None] * _eye_like(W) + cW[..., None, None] * W
             + cW2[..., None, None] * (W @ W))
 

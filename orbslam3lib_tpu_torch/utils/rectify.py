@@ -151,16 +151,25 @@ def remap_bounds(mp) -> tuple:
     return int(dy.min()), int(dy.max()), int(dx.min()), int(dx.max())
 
 
+def _fraction(coord: torch.Tensor, floor: torch.Tensor, lower: torch.Tensor):
+    """The upper tap's weight: the coordinate's offset from the lower tap,
+    clipped to [0, n - 2], so that a sample on the last row or column
+    (coord = n - 1) reads it at weight 1. The reference takes it from the
+    unclipped floor (`orbslam3lib_tpu/utils/rectify.py:199-201`) and reads
+    row n - 2 there at full weight (ROADMAP queue 3)."""
+    return coord - lower.to(coord.dtype)
+
+
 def _taps(coord: torch.Tensor, n: int):
     """Per sample along one axis of length n: the lower tap's index (clipped
     to [0, n - 2]) and the weights of the lower and upper taps, zero where
     the coordinate lies outside [0, n - 1]. The validity is taken before
-    the clip, and the fraction from the unclipped floor (the reference's
-    arithmetic, :194-201)."""
+    the clip (the reference's arithmetic, :194-201), the fraction after it
+    (`_fraction`)."""
     valid = ((coord >= 0) & (coord <= n - 1)).to(torch.float32)
     c0 = torch.floor(coord)
-    frac = coord - c0
     idx = torch.clamp(c0.to(torch.int64), 0, n - 2)
+    frac = _fraction(coord, c0, idx)
     return idx, (1.0 - frac) * valid, frac * valid
 
 
@@ -206,9 +215,9 @@ def remap_bilinear(img: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
     mp = torch.broadcast_to(mp, img.shape[:-2] + (H, W, 2))
     x, y = mp[..., 0], mp[..., 1]
     x0, y0 = torch.floor(x), torch.floor(y)
-    fx, fy = x - x0, y - y0
     xi = torch.clamp(x0.to(torch.int64), 0, W - 2)
     yi = torch.clamp(y0.to(torch.int64), 0, H - 2)
+    fx, fy = _fraction(x, x0, xi), _fraction(y, y0, yi)
     inb = ((x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)).to(img.dtype)
     flat = img.reshape(img.shape[:-2] + (H * W,))
 

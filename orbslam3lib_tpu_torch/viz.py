@@ -1,11 +1,12 @@
-"""Offline visualisation: map renders, PLY export and a PNG writer (a copy
-of the map parts of `orbslam3lib_tpu/viz.py`, which cannot be imported
+"""Offline visualisation: frame overlays, map renders, PLY export and a
+PNG writer (a copy of `orbslam3lib_tpu/viz.py`, which cannot be imported
 without JAX; the maps are read through `map_state.to_numpy`).
 
-The reference's Pangolin viewer (Viewer.cc, MapDrawer.cc) becomes files on
-a headless host: a top-down map render and a PLY point cloud with the
-keyframes and the trajectory. numpy and the standard library only;
-matplotlib only inside `render_map`, imported there.
+The reference's Pangolin viewer (Viewer.cc, FrameDrawer.cc, MapDrawer.cc)
+becomes files on a headless host: the tracked frame with its keypoints, a
+top-down map render and a PLY point cloud with the keyframes and the
+trajectory. numpy and the standard library only; matplotlib only inside
+`render_map`, imported there.
 """
 from __future__ import annotations
 
@@ -38,6 +39,45 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         f.write(chunk(b"IHDR", ihdr))
         f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(chunk(b"IEND", b""))
+
+
+GREEN = np.array([30, 220, 60], np.uint8)     # tracked map point
+BLUE = np.array([70, 130, 240], np.uint8)     # new/untracked feature
+RED = np.array([230, 60, 50], np.uint8)       # outlier/lost
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a numpy array."""
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def draw_frame(img, xy, valid, tracked=None, radius: int = 2) -> np.ndarray:
+    """FrameDrawer::DrawFrame: the grayscale frame with a square around each
+    valid keypoint, green where it tracks a map point, blue where it was
+    only detected (reference :54-77). img (H, W) float or uint8; xy (N, 2);
+    valid (N,) bool; tracked (N,) bool; tensors or arrays. Returns (H, W, 3)
+    uint8."""
+    g = np.clip(_host(img).astype(np.float32), 0, 255).astype(np.uint8)
+    rgb = np.stack([g, g, g], axis=-1)
+    h, w = g.shape
+    xy = _host(xy)
+    valid = _host(valid).astype(bool)
+    tracked = np.zeros(len(xy), bool) if tracked is None else _host(tracked).astype(bool)
+    for i in np.flatnonzero(valid):
+        x, y = int(round(float(xy[i, 0]))), int(round(float(xy[i, 1])))
+        if not (radius <= x < w - radius and radius <= y < h - radius):
+            continue
+        color = GREEN if tracked[i] else BLUE
+        rgb[y - radius:y + radius + 1, x - radius] = color
+        rgb[y - radius:y + radius + 1, x + radius] = color
+        rgb[y - radius, x - radius:x + radius + 1] = color
+        rgb[y + radius, x - radius:x + radius + 1] = color
+    return rgb
+
+
+def save_frame(path: str, img, xy, valid, tracked=None) -> None:
+    """`draw_frame` written as a PNG."""
+    write_png(path, draw_frame(img, xy, valid, tracked))
 
 
 def kf_centers(m) -> np.ndarray:

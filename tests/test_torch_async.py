@@ -55,6 +55,7 @@ from orbslam3lib_tpu_torch.utils import lie as tlie  # noqa: E402
 
 from torch_parity import (RING_CAM as CAM, reference_ransac_draws,  # noqa: E402
                           reference_single_device_gba, ring_world)
+from torch_parity import reference_lie  # noqa: E402,F401
 
 LAST = 12          # the ring world's revisiting keyframe
 F = 160

@@ -36,6 +36,7 @@ from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 from torch_parity import (fast_reference_brief, loop_config,  # noqa: E402,F401
                           orbit_frames, reference_ransac_draws,
                           reference_single_device_gba)
+from torch_parity import reference_lie  # noqa: E402,F401
 
 N_FRAMES = 36
 

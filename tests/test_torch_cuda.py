@@ -799,13 +799,16 @@ def _inertial_inputs(seed: int = 3, n: int = 200):
     return state(ts[0]), frames, cam
 
 
+H_MARG_TOL = 1e-5
+
+
 @pytest.mark.cuda
 def test_inertial_solvers_on_card_match_cpu(cuda_device):
     """The three inertial solvers on the card against the same calls on the
     CPU: the per-frame 15-dof solve of the first frame and, chained on its
     state and H, the 30-dof LastFrame solve of the next one (poses,
     velocities and gyro biases 1e-4, the accel bias 5e-4, inlier masks
-    equal, H_marg 5e-2 of its largest entry), and the IMU
+    equal, H_marg within H_MARG_TOL of its largest entry), and the IMU
     initialisation over a chain of 13 keyframe gaps with and without scale
     (gravity, biases 1e-4; scale and velocities 1e-3). The preintegration
     runs on each device."""
@@ -851,13 +854,17 @@ def test_inertial_solvers_on_card_match_cpu(cuda_device):
                                        getattr(c_[k], f).numpy(), rtol=0, atol=tol, err_msg=f)
     for k in (1, 4):
         assert torch.equal(g_[k].cpu(), c_[k])
-    # H_marg: from the second Gauss-Newton step on, the inertial edge's rows
-    # of J differ between the card and the CPU in their rotation columns by
-    # up to 101 of 4,864 (their iterates 6e-6 apart), which moves H by 2.0%
-    # of its largest entry; at one shared state the two J agree to 1.5e-7
+    # H_marg: with the reference's small-angle series (only below theta^2 =
+    # 1e-8) the inertial edge's rows of J parted between the card and the
+    # CPU in their rotation columns by up to 101 of 4,864 from the second
+    # Gauss-Newton step, which moved H by 2.0% of its largest entry; with the
+    # port's series the f32 derivatives are no longer rounding noise
+    # (PERF.md §6: the gap measured on the card)
     for k in (2, 5):
         Hc = c_[k].numpy()
-        np.testing.assert_allclose(g_[k].cpu().numpy(), Hc, rtol=0, atol=5e-2 * np.abs(Hc).max())
+        gap = np.abs(g_[k].cpu().numpy() - Hc).max() / np.abs(Hc).max()
+        print(f"H_marg {k}: card vs CPU {gap:.3g} of its largest entry")
+        assert gap <= H_MARG_TOL, gap
     for ig, ic in zip(g_[6], c_[6]):
         for x, y, tol in zip(ig, ic, (1e-4, 1e-4, 1e-4, 1e-3, 1e-3)):
             np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=0, atol=tol)
@@ -1052,3 +1059,64 @@ def test_feed_imu_graph_on_card_matches_cpu(cuda_device):
             np.testing.assert_allclose(getattr(a, f).cpu().numpy(), y, rtol=0,
                                        atol=1e-5 * max(float(np.abs(y).max()), 1e-30), err_msg=f)
     assert len(card._integrate_pair.graphs) == 2 and not card._integrate_pair.eager
+
+
+@pytest.mark.cuda
+def test_sharded_frontend_on_card(cuda_device):
+    """`make_sharded_frontend` over DeviceMesh(["cuda:0"] * 2) on 8 frames of
+    the small orbit, each shard's frames in one launch of kernel 1, against
+    `extract_orb_stereo` + `match_rectified_stereo` frame by frame on the
+    card: keypoints, levels, validity and descriptors equal, u_r and depth
+    within 1e-4."""
+    from orbslam3lib_tpu_torch.ops.extractor import extract_orb_stereo
+    from orbslam3lib_tpu_torch.parallel.dist_ba import DeviceMesh
+    from orbslam3lib_tpu_torch.parallel.dist_frontend import make_sharded_frontend
+    from orbslam3lib_tpu_torch.tracking.matching import match_rectified_stereo
+    imgs, _, _ = orbit_frames(8)
+    ths = torch.tensor([12.0, 14.0, 16.0, 17.0] * 2)
+    front = make_sharded_frontend(DeviceMesh([cuda_device] * 2), bf=22.5, min_z=0.3,
+                                  max_kp=256, n_levels=4)
+    before = cuda_fast.launches
+    out = front(torch.from_numpy(imgs), ths)
+    torch.cuda.synchronize()
+    assert cuda_fast.launches == before + 2
+    for g in range(8):
+        f, ur, depth = out[g // 4]
+        i = g % 4
+        ref = extract_orb_stereo(torch.from_numpy(imgs[g]).to(cuda_device), float(ths[g]),
+                                 max_kp=256, n_levels=4)
+        r_ur, r_d = match_rectified_stereo(ref.xy[0], ref.level[0], ref.desc[0], ref.valid[0],
+                                           ref.xy[1], ref.level[1], ref.desc[1], ref.valid[1],
+                                           22.5, 0.3, n_levels=4)
+        for name in ("xy", "level", "valid", "desc"):
+            assert torch.equal(getattr(f, name)[i], getattr(ref, name)), (g, name)
+        assert float((ur[i] - r_ur).abs().max()) <= 1e-4
+        assert float((depth[i] - r_d).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_native_bow_against_dense_on_card(cuda_device):
+    """The native database (built with g++) against the dense one on the
+    card, on the ring world's keyframes: word ids equal to the card's
+    descent, scores within 1e-5, top-3 candidates equal."""
+    from orbslam3lib_tpu_torch import native
+    from orbslam3lib_tpu_torch.models import vocabulary as vb
+    from orbslam3lib_tpu_torch.tracking.reloc import PlaceRecognition
+    arrays, _, _ = ring_world()
+    voc = vb.load_vocabulary(vb.DEFAULT_VOCAB_PATH, device=cuda_device)
+    K, n = arrays["kf_R"].shape[0], int(arrays["n_kf"])
+    nb, dense = native.NativeBowDatabase(voc, K), PlaceRecognition(voc, K)
+    nvoc = native.NativeVocabulary(voc)
+    for k in range(n):
+        d = torch.from_numpy(arrays["kf_desc"][k]).to(cuda_device)
+        v = torch.from_numpy(arrays["kf_feat_valid"][k]).to(cuda_device)
+        assert np.array_equal(nvoc.word_ids(d), vb.word_ids(voc, d).cpu().numpy())
+        nb.add(k, d, v)
+        dense.add(k, d, v)
+    for k in range(n):
+        d = torch.from_numpy(arrays["kf_desc"][k]).to(cuda_device)
+        v = torch.from_numpy(arrays["kf_feat_valid"][k]).to(cuda_device)
+        ids_n, s_n = nb.query(d, v, n_best=3)
+        ids_d, s_d = dense.query(d, v, n_best=3)
+        assert np.array_equal(ids_n, ids_d.cpu().numpy()), k
+        np.testing.assert_allclose(s_n, s_d.cpu().numpy(), rtol=0, atol=1e-5)

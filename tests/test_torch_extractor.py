@@ -126,3 +126,62 @@ def test_threshold_controller_is_the_reference_one():
     j, t = jex.ThresholdController(200, 30, 17.0), tex.ThresholdController(200, 30, 17.0)
     for n in (512, 512, 40, 180, 260, 90, 512, 10):
         assert t.update(n) == j.update(n)
+
+
+def test_extract_orb_one_image(fast_reference_brief):
+    """`extract_orb` on one image without an eye axis, with its canvas
+    (tests/test_frontend_ops.py's case: a synthetic 200x320 image, 256
+    keypoints, 4 levels, threshold 10): the left eye of
+    `extract_orb_stereo` on that image alone, field for field; against the
+    reference's `extract_orb` the same shapes and dtypes, levels, validity
+    and descriptors equal, keypoints within 1e-4 px, the canvas within 1e-4
+    grey levels (the pyramid's rounding, as above)."""
+    import jax
+    from test_frontend_ops import synthetic_image
+    img = synthetic_image(200, 320, n_blobs=60)
+    ft, ct = tex.extract_orb(torch.from_numpy(img), 10.0, max_kp=256, n_levels=4,
+                             return_canvas=True)
+    fs, cs = tex.extract_orb_stereo(torch.from_numpy(img[None]), 10.0, max_kp=256, n_levels=4,
+                                    return_canvas=True)
+    fj, cj = jax.jit(lambda im, t: jex.extract_orb(im, t, max_kp=256, n_levels=4,
+                                                   return_canvas=True))(
+        jnp.asarray(img), jnp.float32(10.0))
+    for name in ("xy", "level", "score", "angle", "desc", "valid"):
+        g, w = getattr(ft, name), np.asarray(getattr(fj, name))
+        assert tuple(g.shape) == w.shape and str(g.dtype).split(".")[-1] == str(w.dtype), name
+        assert torch.equal(g, getattr(fs, name)[0]), name
+    assert torch.equal(ct, cs[0]) and tuple(ct.shape) == cj.shape
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=0, atol=1e-4)
+    for name in ("level", "valid", "desc"):
+        np.testing.assert_array_equal(getattr(ft, name).numpy(), np.asarray(getattr(fj, name)))
+    np.testing.assert_allclose(ft.xy.numpy(), np.asarray(fj.xy), rtol=0, atol=1e-4)
+    assert int(ft.n_valid) > 10
+    assert not isinstance(tex.extract_orb(torch.from_numpy(img), 10.0, max_kp=256, n_levels=4),
+                          tuple)
+
+
+def test_draw_frame_bytes_equal_the_reference(tmp_path, fast_reference_brief):
+    """`viz.draw_frame` / `save_frame` (FrameDrawer) on an extracted frame,
+    its keypoints half tracked, from tensors: the same RGB bytes and the
+    same PNG file as the reference's on the same arrays; the marks of
+    tests/test_viz.py's case."""
+    from orbslam3lib_tpu import viz as jviz
+    from orbslam3lib_tpu_torch import viz as tviz
+    imgs, _, _ = orbit_frames(2)
+    img = imgs[1][0]
+    f = tex.extract_orb(torch.from_numpy(img), 12.0, max_kp=256, n_levels=4)
+    tracked = torch.arange(256) % 2 == 0
+    got = tviz.draw_frame(torch.from_numpy(img.astype(np.float32)), f.xy, f.valid, tracked)
+    want = jviz.draw_frame(img.astype(np.float32), f.xy.numpy(), f.valid.numpy(),
+                           tracked.numpy())
+    assert got.dtype == np.uint8 and got.tobytes() == want.tobytes()
+    tviz.save_frame(str(tmp_path / "t.png"), img, f.xy, f.valid, tracked)
+    jviz.save_frame(str(tmp_path / "j.png"), img, f.xy.numpy(), f.valid.numpy(), tracked.numpy())
+    assert (tmp_path / "t.png").read_bytes() == (tmp_path / "j.png").read_bytes()
+    rng = np.random.default_rng(0)
+    small = rng.uniform(0, 255, (100, 120)).astype(np.float32)
+    xy = np.array([[30.0, 40.0], [80.0, 20.0], [500.0, 500.0]])
+    rgb = tviz.draw_frame(small, xy, np.ones(3, bool), np.array([True, False, False]))
+    assert tuple(rgb[38, 28]) == tuple(tviz.GREEN) and tuple(rgb[18, 78]) == tuple(tviz.BLUE)
+    assert rgb.tobytes() == jviz.draw_frame(small, xy, np.ones(3, bool),
+                                            np.array([True, False, False])).tobytes()

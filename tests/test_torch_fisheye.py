@@ -22,6 +22,7 @@ from orbslam3lib_tpu_torch.config import CameraConfig as TCam, SlamConfig as TCf
 from orbslam3lib_tpu_torch.tracking import matching as tmt, tracker as ttr  # noqa: E402
 
 from torch_parity import fast_reference_brief, loop_config, orbit_frames  # noqa: E402,F401
+from torch_parity import reference_lie  # noqa: E402,F401
 
 KB8 = np.array([285.0, 285.0, 320.0, 200.0, 0.02, -0.01, 0.003, 0.0], np.float32)
 SMALL_KB8_RIG = dict(fx=142.5, fy=142.5, cx=160.0, cy=100.0, width=320, height=200,

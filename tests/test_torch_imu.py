@@ -22,6 +22,7 @@ from orbslam3lib_tpu.tracking import imu as jimu
 from orbslam3lib_tpu_torch.io import synthetic as tsyn
 from orbslam3lib_tpu_torch.tracking import imu as timu
 from orbslam3lib_tpu_torch.utils import lie as tlie
+from torch_parity import reference_lie  # noqa: E402,F401
 
 SIG = (2.4e-3, 2.8e-2, 1.9e-5, 3e-3)     # cfg.imu's discrete sigmas and walks at 200 Hz
 

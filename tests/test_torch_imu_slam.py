@@ -37,6 +37,7 @@ from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 
 from torch_parity import fast_reference_brief, reference_ransac_draws  # noqa: E402,F401
 from test_torch_mono import corridor_config, reference_median_fault  # noqa: E402
+from torch_parity import reference_lie  # noqa: E402,F401
 
 IMU_BG = (0.002, -0.001, 0.0015)     # chip_smoke.py's phase I biases
 IMU_BA = (0.02, -0.01, 0.015)

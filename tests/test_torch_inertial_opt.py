@@ -27,6 +27,7 @@ from orbslam3lib_tpu_torch.tracking import inertial_opt as tio
 from orbslam3lib_tpu_torch.tracking.pose_opt import PoseObs as TObs
 from orbslam3lib_tpu_torch.utils import lie as tlie
 from tests.test_imu import gt_state
+from torch_parity import reference_lie  # noqa: E402,F401
 
 CAM = np.array([300.0, 300.0, 320.0, 200.0], np.float32)
 BF = 300.0 * 0.11

@@ -27,6 +27,7 @@ from orbslam3lib_tpu_torch.mapping import local_ba as tba  # noqa: E402
 from orbslam3lib_tpu_torch.utils import cameras as tcam, smallmat as tsm  # noqa: E402
 
 from test_local_ba import CAM, make_ba_problem  # noqa: E402
+from torch_parity import reference_lie  # noqa: E402,F401
 
 
 def _close(got, want, rel):

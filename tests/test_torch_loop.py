@@ -36,6 +36,7 @@ from torch_parity import (RING_CAM as CAM, fast_reference_brief,  # noqa: E402,F
                           reference_backend_snapshots, reference_draws,
                           reference_ransac_draws, reference_single_device_gba,
                           reference_unscaled_points, ring_world)
+from torch_parity import reference_lie  # noqa: E402,F401
 
 KW = dict(cam_model=0, img_w=640, img_h=400, n_levels=8)
 

@@ -41,6 +41,7 @@ from orbslam3lib_tpu_torch.models import map_state as tms  # noqa: E402
 
 from torch_parity import (RING_CAM as CAM, reference_draws,  # noqa: E402
                           reference_unscaled_points, ring_world)
+from torch_parity import reference_lie  # noqa: E402,F401
 
 LAST = 12
 S_DRIFT = 0.8

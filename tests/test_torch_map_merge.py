@@ -46,6 +46,7 @@ from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 from orbslam3lib_tpu_torch.tracking.reloc import make_place_recognition  # noqa: E402
 
 from torch_parity import RING_CAM, merge_ring_maps, reference_ransac_draws  # noqa: E402
+from torch_parity import reference_lie  # noqa: E402,F401
 
 POS_TOL = 1e-5
 MERGED_TOL = 1e-3
@@ -77,7 +78,7 @@ def jax_db(voc, m):
 
 
 def torch_db(voc, m):
-    db = make_place_recognition(voc, 32)
+    db = make_place_recognition(voc, 32, prefer_native=False)
     for i in range(int(m.n_kf)):
         db.add(i, m.kf_desc[i], m.kf_feat_valid[i])
     return db

@@ -31,6 +31,7 @@ from orbslam3lib_tpu_torch.models import map_state as tms, vocabulary as tvb  # 
 
 from torch_parity import (fast_reference_brief,  # noqa: E402,F401
                           reference_backend_snapshots)
+from torch_parity import reference_lie  # noqa: E402,F401
 
 KID = 6
 KW = dict(cam_model=0, img_w=320, img_h=200, n_levels=4)

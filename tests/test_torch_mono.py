@@ -37,6 +37,7 @@ from orbslam3lib_tpu_torch.models import map_state as tms  # noqa: E402
 from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 
 from torch_parity import fast_reference_brief, reference_ransac_draws  # noqa: E402,F401
+from torch_parity import reference_lie  # noqa: E402,F401
 
 N_FRAMES = 40
 

@@ -31,7 +31,8 @@ def test_port_module_list_covers_the_slice():
                 "utils.sampling", "utils.cameras", "utils.rectify",
                 "utils.timing", "tracking.matching", "viz", "system",
                 "models.atlas", "models.serialization", "mapping.twoview",
-                "tracking.imu", "tracking.inertial_opt", "mapping.vi_ba", "io.euroc"):
+                "tracking.imu", "tracking.inertial_opt", "mapping.vi_ba", "io.euroc",
+                "native", "parallel", "parallel.dist_ba", "parallel.dist_frontend"):
         assert f"orbslam3lib_tpu_torch.{mod}" in names
 
 

@@ -47,6 +47,7 @@ from orbslam3lib_tpu_torch.models import map_state as tms  # noqa: E402
 from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 
 from torch_parity import InlineFetches, fast_reference_brief  # noqa: E402,F401
+from torch_parity import reference_lie  # noqa: E402,F401
 
 
 def small_config(cfg_cls, rig):

@@ -43,6 +43,7 @@ from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 from torch_parity import (InlineFetches, fast_reference_brief,  # noqa: E402,F401
                           loop_config, orbit_frames, reference_ransac_draws,
                           reference_single_device_gba)
+from torch_parity import reference_lie  # noqa: E402,F401
 
 N_FRAMES = 125
 PERIOD = 8.0

@@ -19,6 +19,7 @@ torch.set_num_threads(2)
 from orbslam3lib_tpu.utils import lie as jl, rectify as jr  # noqa: E402
 from orbslam3lib_tpu_torch.io.synthetic import CorridorWorld, StereoRig, orbit_trajectory  # noqa: E402
 from orbslam3lib_tpu_torch.utils import cameras as tc, rectify as tr  # noqa: E402
+from torch_parity import reference_rectify  # noqa: E402,F401
 
 
 DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)   # bench.py's

@@ -20,6 +20,7 @@ from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 from orbslam3lib_tpu_torch.utils import cameras as tc  # noqa: E402
 
 from torch_parity import SMALL_RIG, fast_reference_brief, loop_config, orbit_frames  # noqa: E402,F401
+from torch_parity import reference_lie, reference_rectify  # noqa: E402,F401
 
 DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)   # bench.py's
 N_FRAMES = 20

@@ -32,6 +32,7 @@ from orbslam3lib_tpu_torch.tracking import reloc as trl, tracker as ttr  # noqa:
 from torch_parity import (fast_reference_brief, loop_config,  # noqa: E402,F401
                           orbit_frames, reference_backend_snapshots, reference_draws,
                           reference_ransac_draws)
+from torch_parity import reference_lie  # noqa: E402,F401
 
 CAM = np.array([300.0, 300.0, 320.0, 200.0], np.float32)
 

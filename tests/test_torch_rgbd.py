@@ -43,6 +43,7 @@ from orbslam3lib_tpu_torch.io.synthetic import (CorridorWorld, StereoRig,  # noq
 from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 
 from torch_parity import fast_reference_brief, loop_config, orbit_frames  # noqa: E402,F401
+from torch_parity import reference_lie  # noqa: E402,F401
 
 N_FRAMES = 30
 MAX_KF = 12

@@ -30,6 +30,7 @@ from orbslam3lib_tpu_torch.models import map_state as tms  # noqa: E402
 from orbslam3lib_tpu_torch.utils import lie as tl, sampling  # noqa: E402
 
 from torch_parity import reference_draws  # noqa: E402
+from torch_parity import reference_lie  # noqa: E402,F401
 
 CAM = np.array([300.0, 300.0, 320.0, 200.0], np.float32)
 

@@ -32,6 +32,7 @@ from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 
 from torch_parity import (fast_reference_brief, orbit_frames,  # noqa: E402,F401
                           mapping_off, slice_config)
+from torch_parity import reference_lie  # noqa: E402,F401
 
 N_FRAMES = 8
 

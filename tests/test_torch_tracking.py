@@ -20,6 +20,7 @@ from orbslam3lib_tpu_torch.tracking import matching as tmt, pose_opt as tpo  # n
 from orbslam3lib_tpu_torch.tracking import reloc as trl, tracker as ttr  # noqa: E402
 
 from torch_parity import fast_reference_brief, orbit_frames  # noqa: E402,F401
+from torch_parity import reference_lie  # noqa: E402,F401
 
 N_LEVELS, MAX_KP = 4, 256
 TRACK = dict(r_coarse=7.0, r_fine=3.0, cam_model=0, img_w=320, img_h=200,

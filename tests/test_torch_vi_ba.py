@@ -20,6 +20,7 @@ from orbslam3lib_tpu_torch.mapping import vi_ba as tvb
 from orbslam3lib_tpu_torch.models import map_state as tms
 from orbslam3lib_tpu_torch.tracking import imu as timu
 from tests.test_vi_ba import C, CAM, build_window
+from torch_parity import reference_lie  # noqa: E402,F401
 
 
 def torch_map(m):

@@ -119,7 +119,7 @@ def test_place_recognition_query(vocs):
     kfs = [_bits(400, 40 + i) for i in range(6)]
     valid = rng.random(400) < 0.9
     jp = jrl.make_place_recognition(jv, 16, prefer_native=False)
-    tp = trl.make_place_recognition(tv, 16)
+    tp = trl.make_place_recognition(tv, 16, prefer_native=False)
     for i, d in enumerate(kfs):
         jp.add(i * 2, jnp.asarray(d), jnp.asarray(valid))
         tp.add(i * 2, torch.from_numpy(d), torch.from_numpy(valid))

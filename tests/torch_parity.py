@@ -201,6 +201,75 @@ def reference_unscaled_points():
         yield
 
 
+@contextlib.contextmanager
+def reference_small_angle():
+    """The port's Lie maps with the reference's small-angle arithmetic
+    (`orbslam3lib_tpu/utils/lie.py:23, 45-53`): the series only below
+    theta^2 = 1e-8 and `_sim3_W`'s coefficients in f32. The port takes the
+    series up to theta^2 = `lie._SERIES_THETA2` and `_sim3_W` in f64, since
+    the f32 closed forms' derivatives are rounding noise for theta in
+    ~[1e-4, 1e-1] (ROADMAP queue 3; tools/lie_small_angle.py). For tests
+    that hold the two packages frame by frame or solve by solve."""
+    from orbslam3lib_tpu_torch.utils import lie as tlie
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlie, "_SERIES_THETA2", tlie._EPS)
+        mp.setattr(tlie, "_SIM3_W_DTYPE", None)
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_lie():
+    """`reference_small_angle` for a whole test module: import it into a
+    module whose tests hold the two packages frame by frame or solve by
+    solve."""
+    with reference_small_angle():
+        yield
+
+
+def rotation_angle(Ra, Rb) -> np.ndarray:
+    """The angle (rad) between rotations (..., 3, 3), from the skew part of
+    Ra^T Rb in f64: arcsin |vee((D - D^T) / 2)|. Not arccos of the trace,
+    whose f32 rounding near 3 reads 0, 4.9e-4 and 6.9e-4 rad in steps of
+    one ulp (a rotation against itself can read 6.9e-4)."""
+    D = np.einsum("...ji,...jk->...ik", np.asarray(Ra, np.float64), np.asarray(Rb, np.float64))
+    S = 0.5 * (D - np.swapaxes(D, -1, -2))
+    v = np.stack([S[..., 2, 1], S[..., 0, 2], S[..., 1, 0]], axis=-1)
+    return np.arcsin(np.clip(np.linalg.norm(v, axis=-1), 0.0, 1.0))
+
+
+@contextlib.contextmanager
+def reference_rectify_edge():
+    """The port's remaps with the reference's edge arithmetic
+    (`orbslam3lib_tpu/utils/rectify.py:199-201`): the upper tap's weight
+    from the unclipped floor, so a sample on the last row or column reads
+    its neighbour at full weight. The port takes it from the clipped lower
+    index (ROADMAP queue 3)."""
+    from orbslam3lib_tpu_torch.utils import rectify as trect
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trect, "_fraction", lambda coord, floor, lower: coord - floor)
+        yield
+
+
+@contextlib.contextmanager
+def reference_dist_edges():
+    """The port's sharded BA with the reference's edge weights
+    (`orbslam3lib_tpu/parallel/dist_ba.py:171`): an edge of an invalid
+    landmark or camera weighs in too. The port weighs only those of valid
+    ones, as both packages' plain `bundle_adjust` (ROADMAP queue 3)."""
+    from orbslam3lib_tpu_torch.parallel import dist_ba as tdist
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdist, "_weighed_edges", lambda e_valid, e_own, cam_ok, pt_ok: e_valid & e_own)
+        yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def reference_rectify():
+    """`reference_rectify_edge` for a whole test module (the remap parity
+    tests)."""
+    with reference_rectify_edge():
+        yield
+
+
 class InlineFetches:
     """Stands in for the JAX tracker's background fetch pool (`_fetch_pool`,
     tracker.py:595): each fetch runs when it is submitted, so a chunk's

@@ -11,6 +11,7 @@ machine).
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase mono [--median-depth]
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase rgbd
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase imu [--imu-jolt 3,0,0]
+    JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase fixed_window
 
 Phases (frames rendered by the port's numpy renderer, the same frames the
 smoke feeds the port; bench.py's configuration: 640x400, 512 keypoints, 8
@@ -21,6 +22,9 @@ levels, 2x2 pose iterations, loop closing on, `pipeline=0`):
   radtan   phase D: raw radial-tangential stereo (bench.py's DIST),
            `cfg.stereo.rectify`;
   kb8      phase F: two-camera Kannala-Brandt stereo, `cfg.stereo.fisheye`;
+  fixed_window  phase W: the first 150 pinhole frames with the fixed
+           local-BA window (`cfg.mapping.covis_ba_window = False`: the last
+           `window_size` keyframes and up to `n_fixed` anchors before them);
   compact  phase C: the first 150 pinhole frames with 24 KF / 2048 MP
            slots, 1024 local-BA points and dense keyframing
            (tests/test_compaction.py::test_long_sequence_with_recycling);
@@ -108,7 +112,7 @@ DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
 KB8_K = (0.02, -0.01, 0.003, 0.0)
 DEFAULT_FRAMES = {"pinhole": 400, "radtan": 400, "kb8": 180, "compact": 150,
                   "production": 376, "multimap": 400, "mono": 130, "rgbd": 180,
-                  "imu": 300}
+                  "imu": 300, "fixed_window": 150}
 # bench.py's full_slam protocol (bench.py:39-42)
 N_POPULATE, N_WARM, N_WINDOWS, N_WINDOW = 240, 16, 3, 40
 JOLT_FRAME = 370
@@ -160,6 +164,8 @@ def phase_config(phase, cfg_cls, cam_cls, rig):
         cfg.ba.max_points = 1024          # local BA's points must fit the slots
         cfg.tracker.min_frames_between_kf = 1
         cfg.tracker.kf_ref_ratio = 10.0
+    elif phase == "fixed_window":
+        cfg.mapping.covis_ba_window = False
     return cfg
 
 
