@@ -79,7 +79,7 @@ def multimap_report(maps_kf, origins, spawn, merge, trajectory, states):
 
 
 def imu_report(trajectory, maps_kf, ts_origin: float, grey_ts, kf_bias=None,
-               init_ts=None) -> dict:
+               init_ts=None, speed: float = 0.8, wiggle: float = 0.25) -> dict:
     """chip_smoke.py's phase I numbers (stereo-inertial SLAM down the
     corridor of `io.synthetic.corridor_pose_at`) from host arrays, for
     either package's run. trajectory: [(ts, R, t)] of the tracked frames;
@@ -92,19 +92,20 @@ def imu_report(trajectory, maps_kf, ts_origin: float, grey_ts, kf_bias=None,
     keyframes; grey_err_m: the largest error of a grey frame's centre under
     the trajectory's alignment; kf_bias_g / kf_bias_a: the median over the
     keyframes from the initialisation on of their VI-BA biases (the IMU's
-    biases are constant: one frame's estimate swings by +-0.1 m/s^2)."""
+    biases are constant: one frame's estimate swings by +-0.1 m/s^2).
+    speed / wiggle: the corridor's (`corridor_pose_at`)."""
     from .io.synthetic import corridor_pose_at
     t_traj = np.asarray([f[0] for f in trajectory], np.float64)
     est = np.stack([-np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
                     for _, R, t in trajectory])
-    gt = corridor_pose_at(t_traj)[1]
+    gt = corridor_pose_at(t_traj, speed, wiggle)[1]
     s, R_al, t_al = umeyama_alignment(est, gt)
     err = np.linalg.norm((R_al @ est.T).T + t_al - gt, axis=1)
     grey = np.isin(np.round(t_traj, 6), np.round(np.asarray(grey_ts, np.float64), 6))
     v, R, t, kts = maps_kf
     sel = np.flatnonzero(v)
     est_kf = -np.einsum("kji,kj->ki", R[sel].astype(np.float64), t[sel].astype(np.float64))
-    gt_kf = corridor_pose_at(kts[sel].astype(np.float64) + ts_origin)[1]
+    gt_kf = corridor_pose_at(kts[sel].astype(np.float64) + ts_origin, speed, wiggle)[1]
     out = {}
     if kf_bias is not None and init_ts is not None:
         since = sel[kts[sel].astype(np.float64) + ts_origin >= init_ts - 1e-6]
@@ -116,6 +117,46 @@ def imu_report(trajectory, maps_kf, ts_origin: float, grey_ts, kf_bias=None,
             "grey_err_m": float(err[grey].max()) if grey.any() else None,
             "grey_frames_tracked": int(grey.sum()),
             "trajectory_frames": int(len(trajectory))}
+
+
+def imu_mono_report(trajectory, maps_kf, ts_origin: float, init_ts, kf_bias,
+                    speed: float, wiggle: float) -> dict:
+    """chip_smoke.py's phase J numbers (monocular-inertial SLAM down the
+    corridor driven at `speed` with sway `wiggle`) from host arrays, for
+    either package's run; the arguments as `imu_report`'s.
+
+    ate_post_init_m: the ATE of the frames tracked from the IMU
+    initialisation on, aligned by SE(3) with no scale (after the
+    initialisation the map is metric), over those with finite centres
+    (`nonfinite_frames` counts the others); sim3_scale: the scale a Sim(3)
+    alignment of those frames applies (1 for a metric map); kf_ate_m and
+    kf_bias_g / kf_bias_a: `imu_report`'s keyframe ATE (every keyframe is
+    in the metric map after the initialisation) and median keyframe biases
+    since the initialisation."""
+    from .io.synthetic import corridor_pose_at
+    out = {"ate_post_init_m": None, "sim3_scale": None, "post_init_frames": 0,
+           "nonfinite_frames": 0}
+    if init_ts is None:
+        return out
+    post = [f for f in trajectory if f[0] >= init_ts - 1e-6]
+    out["post_init_frames"] = len(post)
+    est = np.stack([-np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+                    for _, R, t in post]) if post else np.zeros((0, 3))
+    finite = np.isfinite(est).all(axis=1)
+    out["nonfinite_frames"] = int((~finite).sum())
+    if finite.sum() >= 3:
+        t_post = np.asarray([f[0] for f in post], np.float64)[finite]
+        est = est[finite]
+        gt = corridor_pose_at(t_post, speed, wiggle)[1]
+        out["ate_post_init_m"] = ate_rmse(est, gt)
+        out["sim3_scale"] = umeyama_alignment(est, gt, with_scale=True)[0]
+    fin = [f for f in trajectory
+           if np.isfinite(np.asarray(f[1])).all() and np.isfinite(np.asarray(f[2])).all()]
+    v, R, t, kts = maps_kf
+    v = v & np.isfinite(R).all(axis=(1, 2)) & np.isfinite(t).all(axis=1)
+    rep = imu_report(fin, (v, R, t, kts), ts_origin, [], kf_bias, init_ts, speed, wiggle)
+    return {**out, **{k: rep[k] for k in ("kf_bias_g", "kf_bias_a", "kf_bias_n", "kf_ate_m")
+                      if k in rep}}
 
 
 def rpe_rmse(est_centers: np.ndarray, gt_centers: np.ndarray, delta: int = 1) -> float:

@@ -337,19 +337,44 @@ def synth_imu(t0: float, t1: float, freq: float = 200.0,
 
 
 def corridor_imu_stream(ts, noise_gyro: float, noise_acc: float, freq: float,
-                        bg=(0.0, 0.0, 0.0), ba=(0.0, 0.0, 0.0), seed: int = 0):
-    """The IMU between consecutive frame stamps `ts` of the corridor: a list
-    with None for the first frame, then (gyro, acc, dts) per frame from
-    `synth_imu` at `freq`, noise at the discrete sigmas (density times
-    sqrt(freq)), constant biases bg / ba, all calls drawing from one
-    `default_rng(seed)`."""
+                        bg=(0.0, 0.0, 0.0), ba=(0.0, 0.0, 0.0), seed: int = 0,
+                        speed: float = 0.8, wiggle: float = 0.25):
+    """The IMU between consecutive frame stamps `ts` of the corridor
+    (`corridor_pose_at(ts, speed, wiggle)`): a list with None for the first
+    frame, then (gyro, acc, dts) per frame from `synth_imu` at `freq`, noise
+    at the discrete sigmas (density times sqrt(freq)), constant biases
+    bg / ba, all calls drawing from one `default_rng(seed)`."""
     rng = np.random.default_rng(seed)
     sg, sa = noise_gyro * np.sqrt(freq), noise_acc * np.sqrt(freq)
     out = [None]
     for a, b in zip(ts[:-1], ts[1:]):
-        out.append(synth_imu(float(a), float(b), freq=freq, bg=np.asarray(bg, np.float64),
-                             ba=np.asarray(ba, np.float64), sigma_g=sg, sigma_a=sa, rng=rng))
+        out.append(synth_imu(float(a), float(b), freq=freq, speed=speed, wiggle=wiggle,
+                             bg=np.asarray(bg, np.float64), ba=np.asarray(ba, np.float64),
+                             sigma_g=sg, sigma_a=sa, rng=rng))
     return out
+
+
+def render_corridor_mono(n_frames: int, rig: StereoRig | None = None,
+                         world: CorridorWorld | None = None, dt: float = 1.0 / 15.0,
+                         seed: int = 0, speed: float = 0.8, wiggle: float = 0.25):
+    """The left camera of `render_stereo_sequence` on the corridor driven at
+    `speed` (m/s) with lateral sway `wiggle` (m; `corridor_pose_at`). The
+    right image is not rendered, but its noise is drawn, so at the default
+    speed and wiggle the images are `render_stereo_sequence`'s left ones.
+
+    Returns (f32 (n_frames, H, W) images, f64 timestamps, rig)."""
+    rig = rig or StereoRig()
+    world = world or CorridorWorld()
+    ts = np.arange(n_frames, dtype=np.float64) * dt
+    R_cw, c_w = corridor_pose_at(ts, speed, wiggle)
+    R_cw, c_w = R_cw.astype(np.float32), c_w.astype(np.float32)
+    rng = np.random.default_rng(seed)
+    rays = ray_grid(rig)
+    imgs = np.zeros((n_frames, rig.height, rig.width), np.float32)
+    for i in range(n_frames):
+        imgs[i] = world.render(R_cw[i], c_w[i], rig, rng=rng, rays=rays)
+        rng.normal(0, 1.5, (rig.height, rig.width))   # the right image's noise
+    return imgs, ts, rig
 
 
 def _orbit_world(n_frames: int, period: float):

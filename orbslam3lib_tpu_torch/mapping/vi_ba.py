@@ -41,6 +41,13 @@ class VIWindowResult(NamedTuple):
     bg: torch.Tensor     # (3,) the window's gyro bias, or (C, 3) per keyframe
     ba: torch.Tensor     # (3,) or (C, 3)
 
+    @property
+    def last_bias(self):
+        """(bg, ba) of the newest keyframe, in either bias mode."""
+        if self.bg.ndim == 1:
+            return self.bg, self.ba
+        return self.bg[-1], self.ba[-1]
+
 
 def local_inertial_ba(m: ms.MapState, window_ids, fixed_mask, pres: imu_mod.Preintegrated,
                       pre_valid, bg0, ba0, cam_params, bf: float,

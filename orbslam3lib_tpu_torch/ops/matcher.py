@@ -43,6 +43,16 @@ def knn2(dist: torch.Tensor):
     return best.to(torch.int32), d1, d2
 
 
+def mutual_best(dist: torch.Tensor):
+    """Mutual nearest neighbours of a (Na, Nb) distance matrix: each row's
+    best column (the lowest on ties) and whether that column's best row is
+    the row itself (SearchForInitialization-style)."""
+    best_ab = torch.argmin(dist, dim=1)
+    best_ba = torch.argmin(dist, dim=0)
+    agree = best_ba[best_ab] == torch.arange(dist.shape[0], device=dist.device)
+    return best_ab, agree
+
+
 def knn_match(a_bits, b_bits, a_valid=None, b_valid=None):
     """Full kNN-2 brute-force match a -> b: (best (Na,) int32, d1, d2 f32)."""
     return knn2(hamming_matrix(a_bits, b_bits, a_valid, b_valid))

@@ -227,6 +227,25 @@ def project_jac(model: int, params, p3d):
     return kb8_project_jac(params, p3d)
 
 
+def triangulate_dlt(ray1, ray2, T1, T2):
+    """DLT triangulation of two rays (..., 3) under two (..., 3, 4)
+    world-to-camera projections; returns world points (..., 3). The null
+    vector of the four cross-product rows is the smallest eigenvector of
+    A^T A in closed form (`smallmat.smallest_eigvec4_psd`), the estimator
+    of GeometricTools::Triangulate's SVD."""
+    from .smallmat import smallest_eigvec4_psd
+    x1, y1 = ray1[..., 0] / ray1[..., 2], ray1[..., 1] / ray1[..., 2]
+    x2, y2 = ray2[..., 0] / ray2[..., 2], ray2[..., 1] / ray2[..., 2]
+    A = torch.stack([x1[..., None] * T1[..., 2, :] - T1[..., 0, :],
+                     y1[..., None] * T1[..., 2, :] - T1[..., 1, :],
+                     x2[..., None] * T2[..., 2, :] - T2[..., 0, :],
+                     y2[..., None] * T2[..., 2, :] - T2[..., 1, :]], dim=-2)
+    X = smallest_eigvec4_psd(torch.einsum("...ki,...kj->...ij", A, A))
+    w = X[..., 3]
+    w = torch.where(torch.abs(w) < _EPS, torch.full_like(w, _EPS), w)
+    return X[..., :3] / w[..., None]
+
+
 def triangulate_two_view(ray1, ray2, R12, t12):
     """Triangulate in camera 1's frame given the pose of camera 2 in camera 1
     (x_1 = R12 x_2 + t12). ray1/ray2: (..., 3) bearings in each camera.

@@ -75,6 +75,11 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
 
 
+def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian of SO(3), Jr(w) = Jl(-w) (ImuTypes.h:193-199)."""
+    return so3_left_jacobian(-w)
+
+
 def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     """Inverse right Jacobian of SO(3), with its small-angle series."""
     theta2 = torch.sum(w * w, dim=-1)
@@ -170,6 +175,13 @@ def se3_inverse(R, t):
 def se3_apply(R, t, p):
     """Apply the transform to points p (..., 3)."""
     return _matvec(R, p) + t
+
+
+def se3_matrix(R, t):
+    """(R, t) as a (..., 4, 4) homogeneous matrix."""
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
 
 
 # -- Sim(3): loop closing (Sim3Solver, OptimizeSim3, the essential graph) --

@@ -13,6 +13,13 @@ DELTA_MONO = math.sqrt(CHI2_MONO)
 DELTA_STEREO = math.sqrt(CHI2_STEREO)
 
 
+def huber_cost(chi2: torch.Tensor, delta) -> torch.Tensor:
+    """The Huber cost at squared error chi2: chi2 for |e| <= delta,
+    2 delta |e| - delta^2 beyond."""
+    e = torch.sqrt(torch.clamp(chi2, min=1e-12))
+    return torch.where(e <= delta, chi2, 2.0 * delta * e - delta * delta)
+
+
 def huber_weight(chi2: torch.Tensor, delta) -> torch.Tensor:
     """IRLS weight for the Huber kernel at squared error chi2:
     1 for |e| <= delta, delta/|e| beyond."""

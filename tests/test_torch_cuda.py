@@ -7,8 +7,9 @@ the mapper and GBA threads on the card; the cross-map match, the map merge
 and an atlas round trip on the card; kernel 1 at batch 1 and `System` with
 the monocular and the RGB-D sensor on the card against the CPU; the
 inertial solvers (and the per-frame solve replayed from a CUDA graph), the
-windowed VI-BA, `System("imu_mono")` and the inertial map merge on the card
-against the CPU (marker
+windowed VI-BA, `System("imu_mono")` (through its guard's abort on the
+corridor, and through a successful IMU initialisation on phase J's excited
+corridor) and the inertial map merge on the card against the CPU (marker
 `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
@@ -976,6 +977,60 @@ def test_imu_mono_on_card_matches_cpu(cuda_device):
     assert len(sc) == len(sg) >= 1
     np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-3)
     assert card.tracker.imu_ready == cpu.tracker.imu_ready
+    np.testing.assert_allclose(card.tracker.trajectory_centers(),
+                               cpu.tracker.trajectory_centers(), rtol=0, atol=1e-3)
+
+
+# the excited corridor of chip_smoke.py's phase J (IMU_MONO_SPEED, IMU_MONO_WIGGLE)
+IMU_MONO_SPEED, IMU_MONO_WIGGLE = 2.0, 1.2
+N_IMU_MONO_FRAMES = 40
+
+
+@pytest.mark.cuda
+def test_imu_mono_initialises_on_card_like_cpu(cuda_device):
+    """`System(cfg, "imu_mono")` on the corridor driven at IMU_MONO_SPEED
+    with a sway of IMU_MONO_WIGGLE (tests/test_torch_imu_mono.py's
+    sequence), on the card and on the CPU, the two-view RANSAC on the same
+    host draws, through a successful IMU initialisation: the same states
+    and keyframes, `imu_ready` true from the same frame on both devices,
+    every attempt's scale within 1e-3 (the last one passing the 0.1 guard),
+    camera centres within 1e-3."""
+    from orbslam3lib_tpu_torch.io.synthetic import corridor_imu_stream, render_corridor_mono
+    from orbslam3lib_tpu_torch.system import System
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    imgs, ts, rig = render_corridor_mono(N_IMU_MONO_FRAMES, seed=5, speed=IMU_MONO_SPEED,
+                                         wiggle=IMU_MONO_WIGGLE)
+    ci = SlamConfig().imu
+    imu = corridor_imu_stream(ts, ci.noise_gyro, ci.noise_acc, ci.freq,
+                              (0.002, -0.001, 0.0015), (0.02, -0.01, 0.015), seed=0,
+                              speed=IMU_MONO_SPEED, wiggle=IMU_MONO_WIGGLE)
+    attempts = {}
+    real = ttr.inertial_init_optimization
+
+    def logged(kf_R, *a, **k):
+        out = real(kf_R, *a, **k)
+        attempts.setdefault(str(kf_R.device), []).append(float(out[3]))
+        return out
+
+    ready = {}
+    with host_ransac_draws(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttr, "inertial_init_optimization", logged)
+        systems = [System(_mono_config(rig), "imu_mono", device=d, enable_loop_closing=False)
+                   for d in ("cpu", cuda_device)]
+        states = []
+        for s in systems:
+            states.append([])
+            for i in range(N_IMU_MONO_FRAMES):
+                states[-1].append(s.track_monocular(imgs[i], float(ts[i]), imu=imu[i])["state"])
+                if s.tracker.imu_ready:
+                    ready.setdefault(str(s.tracker.device), i)
+    cpu, card = systems
+    assert states[1] == states[0]
+    assert card.get_stats()["n_kf"] == cpu.get_stats()["n_kf"]
+    assert ready["cpu"] == ready[str(card.tracker.device)]
+    sc, sg = attempts["cpu"], attempts[str(card.tracker.device)]
+    assert len(sc) == len(sg) >= 1 and sc[-1] >= 0.1 and sg[-1] >= 0.1
+    np.testing.assert_allclose(sg, sc, rtol=0, atol=1e-3)
     np.testing.assert_allclose(card.tracker.trajectory_centers(),
                                cpu.tracker.trajectory_centers(), rtol=0, atol=1e-3)
 

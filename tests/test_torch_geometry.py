@@ -102,3 +102,43 @@ def test_robust_and_masks_agree():
     _close(tr.huber_weight(torch.from_numpy(chi2), tr.DELTA_STEREO),
            jr.huber_weight(jnp.asarray(chi2), jr.DELTA_STEREO))
     assert (tm.BIG, tr.CHI2_MONO, tr.CHI2_STEREO) == (jm.BIG, jr.CHI2_MONO, jr.CHI2_STEREO)
+
+
+def test_right_jacobian_and_se3_matrix_agree():
+    w = _rng_vecs(5)
+    _close(tl.so3_right_jacobian(torch.from_numpy(w)), jl.so3_right_jacobian(jnp.asarray(w)))
+    R = tl.so3_exp(torch.from_numpy(w))
+    t = torch.from_numpy(_rng_vecs(6, scale=2.0))
+    T = tl.se3_matrix(R, t)
+    assert T.shape == (64, 4, 4)
+    np.testing.assert_array_equal(T.numpy(), np.asarray(jl.se3_matrix(jnp.asarray(R.numpy()),
+                                                                      jnp.asarray(t.numpy()))))
+
+
+def test_triangulate_dlt_agrees():
+    """Two cameras a baseline apart see seeded points: the port's DLT and
+    the reference's on the same rays and projections (1e-4 of the points'
+    2-8 m depths), both within 1e-3 of the true points."""
+    rng = np.random.default_rng(7)
+    X = np.stack([rng.uniform(-2, 2, 96), rng.uniform(-1, 1, 96), rng.uniform(2, 8, 96)],
+                 -1).astype(np.float32)
+    R2 = np.asarray(jl.so3_exp(jnp.asarray([0.02, -0.05, 0.01], jnp.float32)))
+    t2 = np.array([-0.3, 0.02, 0.05], np.float32)
+    T1 = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)
+    T2 = np.concatenate([R2, t2[:, None]], 1).astype(np.float32)
+    ray1, ray2 = X, X @ R2.T + t2
+    T1b, T2b = np.broadcast_to(T1, (96, 3, 4)), np.broadcast_to(T2, (96, 3, 4))
+    pt = tc.triangulate_dlt(*(torch.from_numpy(np.ascontiguousarray(a))
+                              for a in (ray1, ray2, T1b, T2b)))
+    pj = jc.triangulate_dlt(*(jnp.asarray(a) for a in (ray1, ray2, T1b, T2b)))
+    _close(pt, pj, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(pt.numpy(), X, rtol=0, atol=1e-3)
+
+
+def test_huber_cost_agrees():
+    rng = np.random.default_rng(8)
+    chi2 = np.concatenate([rng.uniform(0, 30, 200), [0.0, tr.CHI2_MONO, tr.CHI2_STEREO]])
+    chi2 = chi2.astype(np.float32)
+    for delta in (tr.DELTA_MONO, tr.DELTA_STEREO):
+        _close(tr.huber_cost(torch.from_numpy(chi2), delta),
+               jr.huber_cost(jnp.asarray(chi2), delta), rtol=1e-6, atol=1e-5)

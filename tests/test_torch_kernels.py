@@ -23,6 +23,7 @@ from orbslam3lib_tpu.ops import fast as jfast  # noqa: E402
 from orbslam3lib_tpu.ops import pyramid as jpyr  # noqa: E402
 from orbslam3lib_tpu.ops.extractor import DETECT_MARGIN  # noqa: E402
 from orbslam3lib_tpu.ops.matcher import knn_match as j_knn  # noqa: E402
+from orbslam3lib_tpu.ops.matcher import mutual_best as j_mutual_best  # noqa: E402
 from orbslam3lib_tpu.ops.pallas_fast import fast_scores_nms as j_fast_nms  # noqa: E402
 from orbslam3lib_tpu.ops.pallas_matcher import knn_match_fused as j_knn_fused  # noqa: E402
 from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, matcher  # noqa: E402
@@ -153,3 +154,19 @@ def test_cpu_path_launches_no_kernel():
     bits = torch.zeros((4, 256), dtype=torch.int8)
     cuda_matcher.knn_match_fused(bits, bits)
     assert cuda_fast.launches == 0 and cuda_matcher.launches == 0
+
+
+def test_mutual_best_agrees():
+    """Mutual nearest neighbours on Hamming distances with ties (256-bit
+    descriptors of few distinct values): the same best columns, the lowest
+    on ties, and the same agreement flags as the reference's."""
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 2, (96, 256)).astype(np.int8)
+    b = np.concatenate([a[rng.permutation(96)[:40]], rng.integers(0, 2, (50, 256))]).astype(np.int8)
+    b[45:50] = b[40]                               # tied columns
+    d = matcher.hamming_matrix(torch.from_numpy(a), torch.from_numpy(b))
+    best_t, agree_t = matcher.mutual_best(d)
+    best_j, agree_j = j_mutual_best(jnp.asarray(d.numpy()))
+    np.testing.assert_array_equal(best_t.numpy(), np.asarray(best_j))
+    np.testing.assert_array_equal(agree_t.numpy(), np.asarray(agree_j))
+    assert int(agree_t.sum()) >= 40

@@ -37,6 +37,7 @@ from orbslam3lib_tpu_torch.models import map_state as tms  # noqa: E402
 from orbslam3lib_tpu_torch.tracking import tracker as ttr  # noqa: E402
 
 from torch_parity import fast_reference_brief, reference_ransac_draws  # noqa: E402,F401
+from torch_parity import reference_median_fault  # noqa: E402
 from torch_parity import reference_lie  # noqa: E402,F401
 
 N_FRAMES = 40
@@ -58,17 +59,6 @@ def corridor_config(cfg_cls, rig):
     cfg.camera.width, cfg.camera.height = rig.width, rig.height
     cfg.stereo.baseline = rig.baseline
     return cfg
-
-
-@contextlib.contextmanager
-def reference_median_fault():
-    """The port's initial monocular map keeps the two-view scale, as the
-    reference's does (`scene_median_depth` reads 1, the reference's
-    `jnp.nan_to_num(jnp.median(...), nan=1.0)` on its NaN median)."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ttr, "scene_median_depth",
-                   lambda p3d, tri_ok: torch.ones((), device=p3d.device))
-        yield
 
 
 @contextlib.contextmanager

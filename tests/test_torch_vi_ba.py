@@ -81,3 +81,6 @@ def test_local_inertial_ba(per_kf_bias, padded):
     if padded:     # keyframe 0's velocity and bias stay as they were, as the reference's
         assert torch.equal(m2t.kf_v[0], torch.as_tensor(np.asarray(m.kf_v[0])))
     assert rt.bg.shape == ((n_slots, 3) if per_kf_bias else (3,))
+    for x, y in zip(rt.last_bias, rj.last_bias):   # the newest slot's, in either mode
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=1e-4)
+    assert rt.last_bias[0].shape == (3,)

@@ -177,6 +177,46 @@ def host_ransac_draws():
 
 
 @contextlib.contextmanager
+def reference_median_fault():
+    """The port's initial monocular map keeps the two-view scale, as the
+    reference's does (`scene_median_depth` reads 1, the reference's
+    `jnp.nan_to_num(jnp.median(...), nan=1.0)` on its NaN median;
+    tracker.py:406-408, ROADMAP queue 3)."""
+    import torch
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttr, "scene_median_depth",
+                   lambda p3d, tri_ok: torch.ones((), device=p3d.device))
+        yield
+
+
+@contextlib.contextmanager
+def reference_median_depth():
+    """The port's repair of that fault put into the reference: its initial
+    monocular map scaled to median depth 1 (the lower median of the
+    triangulated depths, as the port's `_mono_init_map` and ORB-SLAM3's
+    ComputeSceneMedianDepth(2)), as `tools/reference_smoke.py
+    --median-depth` runs it. For monocular-inertial runs: the reference's
+    own map keeps the two-view baseline as its unit, so a baseline under
+    10 cm puts even an exact scale under the s < 0.1 guard of its IMU
+    initialisation (tracker.py:2293)."""
+    from orbslam3lib_tpu.tracking import tracker as jtr
+    real = jtr._mono_init_map
+
+    def scaled(m, *a, **k):
+        tri_ok, t21, p3d = np.asarray(a[13]), a[15], a[16]
+        z = np.asarray(p3d)[:, 2][tri_ok]
+        med = float(np.sort(z)[(len(z) - 1) // 2]) if len(z) else 1.0
+        a = list(a)
+        a[15], a[16] = t21 / med, p3d / med
+        return real(m, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtr, "_mono_init_map", scaled)
+        yield
+
+
+@contextlib.contextmanager
 def reference_single_device_gba():
     """The reference's post-loop global BA on its single-device route
     (`global_bundle_adjust`): under tests/conftest.py's virtual 8-device

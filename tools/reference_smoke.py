@@ -12,6 +12,8 @@ machine).
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase rgbd
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase imu [--imu-jolt 3,0,0]
     JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase fixed_window
+    JAX_PLATFORMS=cpu python3 tools/reference_smoke.py --phase imu_mono [--median-depth]
+        [--speed 2.0 --wiggle 1.2] [--z1 75]
 
 Phases (frames rendered by the port's numpy renderer, the same frames the
 smoke feeds the port; bench.py's configuration: 640x400, 512 keypoints, 8
@@ -89,6 +91,29 @@ levels, 2x2 pose iterations, loop closing on, `pipeline=0`):
            since the initialisation), the ATEs (trajectory and keyframes,
            SE(3)) and the largest error of a grey frame
            (`evaluation.imu_report`).
+  imu_mono  phase J: monocular-inertial SLAM through the reference's
+           `System(cfg, "imu_mono").track_monocular(img, ts, imu=...)`
+           (`Tracker(cfg, "mono")` with `cfg.use_imu`) on the seed-5
+           corridor driven faster and swaying wider than phase I's
+           (`--speed` m/s, `--wiggle` m, the end wall at `--z1` m; defaults
+           IMU_MONO_SPEED / IMU_MONO_WIGGLE / IMU_MONO_Z1: of the settings
+           searched, the mildest on which the reference, once its IMU is
+           initialised, fails on fewer than 10 frames before VIBA2; PERF.md
+           §6): the left images of `io.synthetic.render_corridor_mono`, the
+           IMU of `corridor_imu_stream(speed=, wiggle=)` with phase I's
+           noise and biases. At phase I's 0.8 m/s and 0.25 m the scale is not
+           observable and every attempt's scale reads 0.001-0.005. No jolt:
+           the run takes the TrackReferenceKeyFrame fallback on its own.
+           Prints the map's initialisation frame, every inertial
+           initialisation attempt (frame, keyframes, keyframes made, scale,
+           biases; `imu_init_kf`: the keyframes made when one passed), the
+           IMU initialisation, VIBA1 and VIBA2 frames, each scale
+           refinement (frame, scale, applied), the failures and fallbacks,
+           the keyframes, the ATE of the frames from the IMU initialisation
+           on (SE(3), no scale) and the scale a Sim(3) alignment applies
+           (`evaluation.imu_mono_report`). `--median-depth` scales the
+           initial map to median depth 1 (the port's repair); the
+           reference's own map keeps the two-view unit baseline.
 Prints one JSON line per phase: trajectory and keyframe ATE (m, SE(3)
 aligned to the analytic orbit), keyframes, loops and their pairs, the loop
 frame, failures and (compact) compactions; production also the windows,
@@ -112,7 +137,7 @@ DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0)
 KB8_K = (0.02, -0.01, 0.003, 0.0)
 DEFAULT_FRAMES = {"pinhole": 400, "radtan": 400, "kb8": 180, "compact": 150,
                   "production": 376, "multimap": 400, "mono": 130, "rgbd": 180,
-                  "imu": 300, "fixed_window": 150}
+                  "imu": 300, "fixed_window": 150, "imu_mono": 450}
 # bench.py's full_slam protocol (bench.py:39-42)
 N_POPULATE, N_WARM, N_WINDOWS, N_WINDOW = 240, 16, 3, 40
 JOLT_FRAME = 370
@@ -130,6 +155,9 @@ IMU_JOLT_FRAME = 130
 IMU_JOLT_V = (10.0, 0.0, 0.0)
 IMU_BG = (0.002, -0.001, 0.0015)
 IMU_BA = (0.02, -0.01, 0.015)
+# phase J (chip_smoke.py's IMU_MONO_SPEED, IMU_MONO_WIGGLE)
+IMU_MONO_SPEED, IMU_MONO_WIGGLE = 2.0, 1.2
+IMU_MONO_Z1 = 75.0      # the corridor's end wall (m): 30 s at 2 m/s and 15 m beyond
 
 
 def bench_config(cfg_cls, rig):
@@ -190,8 +218,16 @@ def main() -> int:
                          "instead of the orbit")
     ap.add_argument("--imu-jolt", default=",".join(map(str, IMU_JOLT_V)),
                     help="imu: the velocity error (m/s, 'x,y,z') before IMU_JOLT_FRAME")
+    ap.add_argument("--speed", type=float, default=IMU_MONO_SPEED,
+                    help="imu_mono: the corridor's speed (m/s)")
+    ap.add_argument("--wiggle", type=float, default=IMU_MONO_WIGGLE,
+                    help="imu_mono: the corridor's lateral sway (m)")
+    ap.add_argument("--z1", type=float, default=IMU_MONO_Z1,
+                    help="imu_mono: the corridor's end wall (m)")
     args = ap.parse_args()
     n = args.frames or DEFAULT_FRAMES[args.phase]
+    if args.phase == "imu_mono":
+        return imu_mono(n, args.median_depth, args.speed, args.wiggle, args.z1)
     if args.phase == "imu":
         return imu(n, tuple(float(x) for x in args.imu_jolt.split(",")))
     if args.phase == "production":
@@ -458,6 +494,27 @@ def mono_frames(n: int, corridor: bool):
     return imgs[:, 0], ts, lambda t: syn.orbit_pose_at(t, period=24.0, radius=0.5)[1]
 
 
+def log_mono_inits(jtr, inits: list, median_depth: bool):
+    """Wrap the reference's `_mono_init_map`: each call appends the points
+    triangulated, their median depth and |t21| to `inits`; with
+    `median_depth` the initial map is scaled to median depth 1 (the lower
+    median, as ORB-SLAM3's ComputeSceneMedianDepth(2))."""
+    real_init = jtr._mono_init_map
+
+    def init_logged(m, *a, **k):
+        tri_ok, t21, p3d = np.asarray(a[13]), a[15], a[16]
+        z = np.asarray(p3d)[:, 2][tri_ok]
+        med = float(np.sort(z)[(len(z) - 1) // 2]) if len(z) else 1.0
+        inits.append({"n_tri": int(tri_ok.sum()), "median_depth": med,
+                      "t21_norm": float(np.linalg.norm(np.asarray(t21)))})
+        if median_depth:
+            a = list(a)
+            a[15], a[16] = t21 / med, p3d / med
+        return real_init(m, *a, **k)
+
+    jtr._mono_init_map = init_logged
+
+
 def mono(n: int, median_depth: bool, corridor: bool) -> int:
     """Phase O on the JAX reference (see the module docstring)."""
     import jax.numpy as jnp
@@ -474,19 +531,7 @@ def mono(n: int, median_depth: bool, corridor: bool) -> int:
     render_s = time.time() - t0
     cfg = bench_config(SlamConfig, StereoRig())
     inits, loops = [], []
-    real_init = jtr._mono_init_map
-
-    def init_logged(m, *a, **k):
-        tri_ok, t21, p3d = np.asarray(a[13]), a[15], a[16]
-        z = np.asarray(p3d)[:, 2][tri_ok]
-        med = float(np.sort(z)[(len(z) - 1) // 2]) if len(z) else 1.0
-        inits.append({"n_tri": int(tri_ok.sum()), "median_depth": med,
-                      "t21_norm": float(np.linalg.norm(np.asarray(t21)))})
-        if median_depth:
-            a = list(a)
-            a[15], a[16] = t21 / med, p3d / med
-        return real_init(m, *a, **k)
-
+    log_mono_inits(jtr, inits, median_depth)
     real_correct = jlc.LoopCloser.correct
 
     def correct_logged(self, m, kf_cur, kf_loop, S12):
@@ -494,7 +539,6 @@ def mono(n: int, median_depth: bool, corridor: bool) -> int:
                       "s": float(np.asarray(S12[2]))})
         return real_correct(self, m, kf_cur, kf_loop, S12)
 
-    jtr._mono_init_map = init_logged
     jlc.LoopCloser.correct = correct_logged
     tr = jtr.Tracker(cfg, "mono", enable_loop_closing=True, pipeline=0)
     frame = [0]
@@ -662,6 +706,91 @@ def imu(n: int, jolt_v) -> int:
            "bias_last30_max": tail.max(0).round(6).tolist(),
            **imu_report(tr.trajectory, arrays, tr._ts_origin, grey_ts,
                         (np.asarray(m.kf_bg), np.asarray(m.kf_ba)), tr._imu_init_ts)}
+    s.shutdown()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def imu_mono(n: int, median_depth: bool, speed: float, wiggle: float, z1: float) -> int:
+    """Phase J on the JAX reference (see the module docstring)."""
+    from orbslam3lib_tpu import system as jsys
+    from orbslam3lib_tpu.config import SlamConfig
+    from orbslam3lib_tpu.tracking import reloc as jreloc
+    from orbslam3lib_tpu.tracking import tracker as jtr
+    from orbslam3lib_tpu_torch.evaluation import imu_mono_report
+    from orbslam3lib_tpu_torch.io import synthetic as syn
+
+    cfg = bench_config(SlamConfig, syn.StereoRig())
+    t0 = time.time()
+    world = syn.CorridorWorld(z1=z1)
+    imgs, ts, _ = syn.render_corridor_mono(n, world=world, seed=5, speed=speed, wiggle=wiggle)
+    imu_data = syn.corridor_imu_stream(ts, cfg.imu.noise_gyro, cfg.imu.noise_acc, cfg.imu.freq,
+                                       bg=IMU_BG, ba=IMU_BA, seed=0, speed=speed,
+                                       wiggle=wiggle)
+    render_s = time.time() - t0
+    inits = []
+    log_mono_inits(jtr, inits, median_depth)
+    s = jsys.System(cfg, jsys.SENSOR_IMU_MONOCULAR, enable_loop_closing=True)
+    tr = s.tracker
+    frame = [0]
+    solves = []
+    real_solve = jtr.inertial_init_optimization
+
+    def solve_logged(kf_R, *a, **k):
+        out = real_solve(kf_R, *a, **k)
+        solves.append({"frame": frame[0], "n_kf": int(kf_R.shape[0]),
+                       "n_kf_made": tr.stats["n_kf"],
+                       "s": float(np.asarray(out[3])), "ready": bool(tr.imu_ready),
+                       "bg": np.asarray(out[1], np.float64).round(6).tolist(),
+                       "ba": np.asarray(out[2], np.float64).round(6).tolist()})
+        return out
+
+    jtr.inertial_init_optimization = solve_logged
+    fallbacks = []
+    real_ref = jreloc.track_reference_kf
+
+    def ref_counted(*a, **k):
+        fallbacks.append(frame[0])
+        return real_ref(*a, **k)
+
+    jreloc.track_reference_kf = ref_counted
+    ev = {"map_init_frame": None, "imu_init_frame": None, "viba1_frame": None,
+          "viba2_frame": None}
+    states = []
+    t1 = time.time()
+    for i in range(n):
+        frame[0] = i
+        states.append(int(s.track_monocular(imgs[i], float(ts[i]), imu=imu_data[i])["state"]))
+        if ev["map_init_frame"] is None and states[-1] == jsys.OK:
+            ev["map_init_frame"] = i
+        if ev["imu_init_frame"] is None and tr.imu_ready:
+            ev["imu_init_frame"] = i
+        if ev["viba1_frame"] is None and tr._viba_stage >= 1:
+            ev["viba1_frame"] = i
+        if ev["viba2_frame"] is None and tr._viba_stage >= 2:
+            ev["viba2_frame"] = i
+    run_s = time.time() - t1
+    m = tr.map
+    arrays = tuple(np.asarray(x) for x in (m.kf_valid, m.kf_R, m.kf_t, m.kf_ts))
+    init_frame = ev["map_init_frame"]
+    attempts = [x for x in solves if not x["ready"]]
+    refinements = [dict(x, applied=0.5 < x["s"] < 2.0) for x in solves if x["ready"]]
+    out = {"phase": "imu_mono", "frames": n, "speed": speed, "wiggle": wiggle, "z1": z1,
+           "median_depth_fix": median_depth, "render_s": round(render_s, 1), "run_s": round(run_s, 1), **ev,
+           "mono_inits": inits, "init_attempts": attempts,
+           "imu_init_kf": next((x["n_kf_made"] for x in attempts if x["s"] >= 0.1), None),
+           "scale_refinements": refinements,
+           "imu_init_ts": tr._imu_init_ts, "track_fail": tr.stats["track_fail"],
+           "fail_frames": [i for i, x in enumerate(states)
+                           if x != jsys.OK and init_frame is not None and i > init_frame],
+           "n_kf_created": tr.stats["n_kf"], "n_kf_alive": int(arrays[0].sum()),
+           "n_reloc": tr.stats["n_reloc"], "n_loops": tr.stats["n_loops"],
+           "n_resets": tr.stats["n_resets"], "n_new_maps": tr.stats["n_new_maps"],
+           "ref_kf_fallback_frames": fallbacks, "state": int(tr.state),
+           "bias_g": np.asarray(tr.imu_bias[0], np.float64).tolist(),
+           "bias_a": np.asarray(tr.imu_bias[1], np.float64).tolist(),
+           **imu_mono_report(tr.trajectory, arrays, tr._ts_origin, tr._imu_init_ts,
+                             (np.asarray(m.kf_bg), np.asarray(m.kf_ba)), speed, wiggle)}
     s.shutdown()
     print(json.dumps(out), flush=True)
     return 0
