@@ -45,6 +45,7 @@ from ..ops.pyramid import scale_factors_on
 from ..tracking.matching import (TH_HIGH, match_descriptors_ratio,
                                  predicted_level, search_by_projection)
 from ..utils import cameras, lie
+from ..utils.timing import StageTimer
 from . import pose_graph
 from . import sim3 as sim3_mod
 from .local_mapping import _index, mapping_step, observed_mp_mask, top_covisible
@@ -378,7 +379,10 @@ def verify_loop_fused(m: ms.MapState, kf_id, cand, cam_params,
 class LoopCloser:
     """Host-side loop-detection state machine that also runs the correction
     and, unless `async_gba`, the global BA inside `on_probe_result`
-    (`abort_gba`, polled between its LM chunks, is the mbStopGBA flag)."""
+    (`abort_gba`, polled between its LM chunks, is the mbStopGBA flag).
+    `timer`: the tracker's `StageTimer`, which times the verification,
+    the correction and the global BA as the spans `loop.verify`,
+    `loop.correct` and `loop.gba` (off by default)."""
 
     # staged-verification thresholds (LoopClosing.cc:583-589); the
     # projection counts scale with the feature budget, with floors
@@ -398,8 +402,10 @@ class LoopCloser:
 
     def __init__(self, cfg, place_rec, min_matches: int = 20,
                  min_inliers: int = 20, consistency_needed: int = 3,
-                 gba_iters: int = 10, fix_scale: bool = False):
+                 gba_iters: int = 10, fix_scale: bool = False,
+                 timer: StageTimer | None = None):
         self.cfg = cfg
+        self.timer = timer if timer is not None else StageTimer()
         self.pr = place_rec
         self.min_matches = min_matches
         self.min_inliers = min_inliers
@@ -520,11 +526,12 @@ class LoopCloser:
         fs = float(m.n_feat) / self.REF_FEAT_BUDGET
         proj_th = max(self.PROJ_FLOOR, round(self.PROJ_MATCHES * fs))
         proj_opt_th = max(self.PROJ_OPT_FLOOR, round(self.PROJ_OPT_MATCHES * fs))
-        pack_dev = verify_loop_fused(m, kf_id, cand, cam_params,
-                                     cam_model=cam.model_id, img_w=cam.width,
-                                     img_h=cam.height, n_levels=self.cfg.orb.n_levels,
-                                     fix_scale=fix_scale)
-        pack = pack_dev.cpu().numpy()
+        with self.timer.span("loop.verify"):
+            pack_dev = verify_loop_fused(m, kf_id, cand, cam_params,
+                                         cam_model=cam.model_id, img_w=cam.width,
+                                         img_h=cam.height, n_levels=self.cfg.orb.n_levels,
+                                         fix_scale=fix_scale)
+            pack = pack_dev.cpu().numpy()
         self.last_verification = (kf_id, cand, pack)
         n_match, n_inl, n_proj, n_inlo, n_proj2 = (int(x) for x in pack[:5])
         if n_match < self.min_matches or n_inl < self.RANSAC_INLIERS:
@@ -548,7 +555,8 @@ class LoopCloser:
                 return m
 
         S12 = (pack_dev[5:14].reshape(3, 3), pack_dev[14:17], pack_dev[17])
-        m = self.correct(m, kf_id, cand, S12)
+        with self.timer.span("loop.correct"):
+            m = self.correct(m, kf_id, cand, S12)
         self.last_loop_kf = kf_id
         self.consistency_count = 0
         self.n_loops += 1
@@ -556,10 +564,11 @@ class LoopCloser:
         # LoopClosing.cc:1206); with async_gba the tracker starts it instead
         if self.gba_iters > 0 and not self.async_gba:
             self.abort_gba = False
-            m = global_bundle_adjust(
-                m, cam_params, bf=float(self.cfg.bf), cam_model=cam.model_id,
-                n_iters=self.gba_iters, chunk=5, n_ba_points=min(m.max_mp, 4096),
-                should_abort=lambda: self.abort_gba)
+            with self.timer.span("loop.gba"):
+                m = global_bundle_adjust(
+                    m, cam_params, bf=float(self.cfg.bf), cam_model=cam.model_id,
+                    n_iters=self.gba_iters, chunk=5, n_ba_points=min(m.max_mp, 4096),
+                    should_abort=lambda: self.abort_gba)
         return m
 
     def correct(self, m: ms.MapState, kf_cur: int, kf_loop: int, S12) -> ms.MapState:

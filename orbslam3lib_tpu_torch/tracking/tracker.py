@@ -567,7 +567,9 @@ class Tracker:
     raises rather than falling back to the CPU). `enable_loop_closing` as
     in the reference (on by default); `enable_timing` records the host time
     of the stages `extract`, `stereo_match` and `track` per frame
-    (`self.timer`), waiting for the card at the end of each.
+    (`self.timer`), waiting for the card at the end of each, and the spans
+    of the frame's layers and of its keyframe's back end, which wait for
+    nothing (`utils/timing.py`; `self.timer.export()`).
 
     `pipeline > 1` turns on the pipelined path with up to `pipeline` frames
     in flight, in chunks of `chunk` frames; `async_mapping` starts the
@@ -591,7 +593,7 @@ class Tracker:
         self.cfg = cfg
         self.sensor = sensor
         self.device = get_device(device)
-        self.timer = StageTimer(enabled=enable_timing)
+        self.timer = StageTimer(enabled=enable_timing, device=self.device)
         self._remap = None
         stereo = sensor == "stereo"
         if stereo and cfg.stereo.rectify and not cfg.stereo.fisheye:
@@ -639,6 +641,7 @@ class Tracker:
         self._mp_pressure_probe = None  # (n_mp copy, its event), every 8th keyframe
         self._compact_backoff = 0     # earliest frame id of the next compaction
         self._kf_wall: dict = {}      # keyframe id -> host time of its creation
+        self._kf_frame: dict = {}     # keyframe id -> id of the frame that made it
         self.lost_since: Optional[float] = None
         self._n_kf_host = 0           # host mirror of map.n_kf
         self._ts_origin: Optional[float] = None
@@ -780,10 +783,12 @@ class Tracker:
         dts = np.asarray(dts, np.float32)
         if len(dts) == 0:
             return
-        samples = [to_device(np.asarray(x, np.float32), self.device) for x in (gyro, acc, dts)]
-        pres = (self._pre_frame, self._pre_kf)
-        out = self._integrate_pair(*(getattr(p, f) for p in pres for f in imu_mod.TENSOR_FIELDS),
-                                   *samples)
+        with self.timer.span("imu.preintegrate", frame=self.frame_id):
+            samples = [to_device(np.asarray(x, np.float32), self.device)
+                       for x in (gyro, acc, dts)]
+            pres = (self._pre_frame, self._pre_kf)
+            out = self._integrate_pair(
+                *(getattr(p, f) for p in pres for f in imu_mod.TENSOR_FIELDS), *samples)
         n = len(imu_mod.TENSOR_FIELDS)
         add = float(np.sum(dts, dtype=np.float64))
         self._pre_frame, self._pre_kf = (
@@ -815,7 +820,12 @@ class Tracker:
         RGB-D; `depth_map` (H, W), RGB-D only: the depth of each pixel, 0
         where there is none. Returns {"state", "n_inliers", ...} for the
         frame; on the pipelined path the state and inliers of the last
-        consumed frame, with "pipelined": True."""
+        consumed frame, with "pipelined": True. With timing on, the frame is
+        the root span `frame` of everything it runs."""
+        with self.timer.span("frame", frame=self.frame_id):
+            return self._process_frame(img, ts, depth_map)
+
+    def _process_frame(self, img, ts: float, depth_map) -> dict:
         cfg = self.cfg
         if (depth_map is not None) != (self.sensor == "rgbd"):
             raise ValueError(f"sensor {self.sensor!r}: a depth map goes with RGB-D frames "
@@ -842,7 +852,9 @@ class Tracker:
                 (self._mp_pressure or self._n_kf_host >= self.map.max_kf - 1):
             self._mp_pressure = False
             self._drain_pipeline()
-            if not self._compact_map():
+            with self.timer.span("map.compact"):
+                compacted = self._compact_map()
+            if not compacted:
                 self._compact_backoff = self.frame_id + 64
 
         # the pipelined path: steady-state stereo tracking only;
@@ -1116,11 +1128,12 @@ class Tracker:
         # local map (None right after init: both stages search the map)
         local = bool(cfg.tracker.local_map_tracking)
         prev = self._prev_feat_mp if local else None
-        (R, t, mp_feat, _, n_inl, visible, obs, _, feat_mp_out) = _two_stage_core(
-            self.map, R0, t0, *f0, u_r, depth, self.cam_params,
-            prev_mp=prev, prev_angle=self._prev_feat_angle if prev is not None else None,
-            feat_angle=feats.angle[0] if prev is not None else None,
-            local_only=local, **self._track_args())
+        with self.timer.span("track.search"):
+            (R, t, mp_feat, _, n_inl, visible, obs, _, feat_mp_out) = _two_stage_core(
+                self.map, R0, t0, *f0, u_r, depth, self.cam_params,
+                prev_mp=prev, prev_angle=self._prev_feat_angle if prev is not None else None,
+                feat_angle=feats.angle[0] if prev is not None else None,
+                local_only=local, **self._track_args())
         n_inliers = int(n_inl)
         # MapPoint::IncreaseVisible/IncreaseFound, in place
         self.map.mp_visible += visible
@@ -1151,18 +1164,21 @@ class Tracker:
             # the reference keyframe's landmarks (kernel 2 on the card), then
             # re-run the two-stage track from the recovered pose
             self.stats["ref_kf_fallbacks"] += 1
-            R_ref, t_ref, n_ref = track_reference_kf(
-                self.map, self.last_kf_id, R_last, t_last, *f0,
-                feats.angle[0], u_r, depth, self.cam_params,
-                cam_model=cfg.camera.model_id, bf=float(cfg.bf),
-                n_levels=cfg.orb.n_levels)
+            with self.timer.span("track.ref_kf_fallback"):
+                R_ref, t_ref, n_ref = track_reference_kf(
+                    self.map, self.last_kf_id, R_last, t_last, *f0,
+                    feats.angle[0], u_r, depth, self.cam_params,
+                    cam_model=cfg.camera.model_id, bf=float(cfg.bf),
+                    n_levels=cfg.orb.n_levels)
             if int(n_ref) >= min_inl:
-                (R, t, mp_feat, _, n_inl, visible, _, _, feat_mp_out) = \
-                    _two_stage_core(self.map, R_ref, t_ref, *f0, u_r, depth,
-                                    self.cam_params, **self._track_args())
+                with self.timer.span("track.search"):
+                    (R, t, mp_feat, _, n_inl, visible, _, _, feat_mp_out) = \
+                        _two_stage_core(self.map, R_ref, t_ref, *f0, u_r, depth,
+                                        self.cam_params, **self._track_args())
                 n_inliers = int(n_inl)
         if n_inliers < min_inl:
-            return self._handle_loss(feats, ts, u_r, depth, pred_pose=(R0, t0))
+            with self.timer.span("track.reloc"):
+                return self._handle_loss(feats, ts, u_r, depth, pred_pose=(R0, t0))
 
         self.state = OK
         self.lost_since = None
@@ -1194,10 +1210,11 @@ class Tracker:
         prior = self._inertial_prior
         other = prior[0] if prior is not None else self.anchor_state
         pre = self._pre_frame
-        flat = (*cur, *other, *((prior[1],) if prior is not None else ()),
-                *(getattr(pre, f) for f in imu_mod.TENSOR_FIELDS), *obs, self.cam_params,
-                *self._tbc)
-        out = (self._solve_prior if prior is not None else self._solve_anchor)(*flat)
+        with self.timer.span("track.inertial_solve"):
+            flat = (*cur, *other, *((prior[1],) if prior is not None else ()),
+                    *(getattr(pre, f) for f in imu_mod.TENSOR_FIELDS), *obs, self.cam_params,
+                    *self._tbc)
+            out = (self._solve_prior if prior is not None else self._solve_anchor)(*flat)
         return InertialFrameState(*out[:5]), out[6], out[7]
 
     def _flat_inertial_solve(self, with_prior: bool):
@@ -1329,7 +1346,8 @@ class Tracker:
             if self.loop_closer is not None:
                 n_loops = self.loop_closer.n_loops
                 self.loop_closer = LoopCloser(self.cfg, self.place_rec,
-                                              fix_scale=self.sensor != "mono")
+                                              fix_scale=self.sensor != "mono",
+                                              timer=self.timer)
                 self.loop_closer.n_loops = n_loops
         self.state = NOT_INITIALIZED
         self.pose = None
@@ -1460,20 +1478,22 @@ class Tracker:
         # new ones come from local mapping's triangulation
         close_depth = -1.0 if self.sensor == "mono" else \
             float(cfg.stereo.depth_factor * cfg.stereo.baseline)
-        self.map, kf_id = _insert_kf_and_spawn(
-            self.map, R, t, self._rel_ts(ts), feats.xy[0], feats.level[0],
-            feats.desc[0], feats.valid[0], u_r, depth, mp_feat,
-            self.cam_params, close_depth,
-            cam_model=cfg.camera.model_id, n_levels=cfg.orb.n_levels,
-            v=self.frame_state_v, bg=bg, ba=ba, angle=feats.angle[0],
-            img_w=cfg.camera.width, img_h=cfg.camera.height,
-            th_far=cfg.tracker.th_far_points)
+        with self.timer.span("keyframe.insert"):
+            self.map, kf_id = _insert_kf_and_spawn(
+                self.map, R, t, self._rel_ts(ts), feats.xy[0], feats.level[0],
+                feats.desc[0], feats.valid[0], u_r, depth, mp_feat,
+                self.cam_params, close_depth,
+                cam_model=cfg.camera.model_id, n_levels=cfg.orb.n_levels,
+                v=self.frame_state_v, bg=bg, ba=ba, angle=feats.angle[0],
+                img_w=cfg.camera.width, img_h=cfg.camera.height,
+                th_far=cfg.tracker.th_far_points)
         self.last_kf_frame = self.frame_id
         self.last_kf_id = int(kf_id)
         self.ref_kf_matches = max(n_inliers, 1)
         self.stats["n_kf"] += 1
         if kf_id >= 0:
             self._kf_wall[kf_id] = time.perf_counter()
+            self._kf_frame[kf_id] = self.frame_id
             self._n_kf_host = kf_id + 1
             if kf_id % 8 == 0:
                 self._probe_mp_pressure()
@@ -1488,19 +1508,21 @@ class Tracker:
         cfg = self.cfg
         _, xy, level, angle, desc, valid, u_r, depth, mp_feat = rec.outs[c]
         kid = self._n_kf_host
-        self.map, _ = _insert_kf_and_spawn(
-            self.map, self._dev(R), self._dev(t), self._rel_ts(rec.ts[c]), xy, level,
-            desc, valid, u_r, depth, mp_feat, self.cam_params,
-            float(cfg.stereo.depth_factor * cfg.stereo.baseline),
-            cam_model=cfg.camera.model_id, n_levels=cfg.orb.n_levels, angle=angle,
-            img_w=cfg.camera.width, img_h=cfg.camera.height,
-            th_far=cfg.tracker.th_far_points, kf_id=kid)
+        with self.timer.span("keyframe.insert", frame=rec.fids[c]):
+            self.map, _ = _insert_kf_and_spawn(
+                self.map, self._dev(R), self._dev(t), self._rel_ts(rec.ts[c]), xy, level,
+                desc, valid, u_r, depth, mp_feat, self.cam_params,
+                float(cfg.stereo.depth_factor * cfg.stereo.baseline),
+                cam_model=cfg.camera.model_id, n_levels=cfg.orb.n_levels, angle=angle,
+                img_w=cfg.camera.width, img_h=cfg.camera.height,
+                th_far=cfg.tracker.th_far_points, kf_id=kid)
         self._n_kf_host = kid + 1
         self.last_kf_frame = rec.fids[c]
         self.last_kf_id = kid
         self.ref_kf_matches = max(n_inl, 1)
         self.stats["n_kf"] += 1
         self._kf_wall[kid] = time.perf_counter()
+        self._kf_frame[kid] = rec.fids[c]
         if kid % 8 == 0:
             self._probe_mp_pressure()
         self._queue_mapping(kid, lagged_loops=True)
@@ -1629,7 +1651,7 @@ class Tracker:
             # stereo and RGB-D: depth fixes the scale; monocular loops
             # solve a free-scale Sim(3) (reference :655-657)
             self.loop_closer = LoopCloser(self.cfg, self.place_rec,
-                                          fix_scale=self.sensor != "mono")
+                                          fix_scale=self.sensor != "mono", timer=self.timer)
             if self.map_merger is None:
                 self.map_merger = MapMerger(self.cfg)
 
@@ -1641,24 +1663,31 @@ class Tracker:
         then, when the keyframe passes the probe gates, the probe pack is
         read and consumed (`_consume_probes`), or with `lagged_loops` (the
         pipelined path) only kept, to ride the next chunk's read. The probe
-        runs whenever a loop closer exists, as in the reference."""
+        runs whenever a loop closer exists, as in the reference. With timing
+        on, all of it is the span `keyframe.backend`, under the id of the
+        frame that made the keyframe (also on the mapper thread)."""
+        with self.timer.span("keyframe.backend", frame=self._kf_frame.get(kid)):
+            self._mapping_steps(kid, lagged_loops)
+
+    def _mapping_steps(self, kid: int, lagged_loops: bool):
         cfg = self.cfg
         pr = self.place_rec
         voc = pr.voc
         lc = self.loop_closer
         want_probe = lc is not None and lc.probe_gates_ok(kid, self._n_kf_host)
         dev = self.device
-        self.map, pr.bow_db, pr.active, probe = mapper_step_fused(
-            self.map, pr.bow_db, pr.active, voc.centroids, voc.idf,
-            torch.full((), kid, dtype=torch.int32, device=dev),
-            self.cam_params, k=voc.k, depth=voc.depth,
-            cam_model=cfg.camera.model_id, img_w=cfg.camera.width,
-            img_h=cfg.camera.height, n_levels=cfg.orb.n_levels,
-            n_tri=cfg.mapping.n_tri_neighbors, n_fuse=cfg.mapping.n_fuse_neighbors,
-            do_cull_kf=bool(cfg.mapping.kf_culling), with_probe=lc is not None,
-            th_far=self._th_far,
-            prev_cand=torch.full((), lc.consistent_candidate if lc is not None else -1,
-                                 dtype=torch.int32, device=dev))
+        with self.timer.span("mapping.mapper_step"):
+            self.map, pr.bow_db, pr.active, probe = mapper_step_fused(
+                self.map, pr.bow_db, pr.active, voc.centroids, voc.idf,
+                torch.full((), kid, dtype=torch.int32, device=dev),
+                self.cam_params, k=voc.k, depth=voc.depth,
+                cam_model=cfg.camera.model_id, img_w=cfg.camera.width,
+                img_h=cfg.camera.height, n_levels=cfg.orb.n_levels,
+                n_tri=cfg.mapping.n_tri_neighbors, n_fuse=cfg.mapping.n_fuse_neighbors,
+                do_cull_kf=bool(cfg.mapping.kf_culling), with_probe=lc is not None,
+                th_far=self._th_far,
+                prev_cand=torch.full((), lc.consistent_candidate if lc is not None else -1,
+                                     dtype=torch.int32, device=dev))
         self.stats["n_mapping_steps"] += 1
         q = self._map_queue
         if q is None or q.unfinished_tasks <= 1:
@@ -1670,7 +1699,8 @@ class Tracker:
                 self._consume_probes([(kid, probe.cpu().numpy())])
         mm = self.map_merger
         if mm is not None and mm.archives:
-            self._detect_merge(kid)
+            with self.timer.span("mapping.merge"):
+                self._detect_merge(kid)
         if cfg.use_imu and self.imu_ready:
             self._inertial_back_end(kid)
 
@@ -1744,7 +1774,9 @@ class Tracker:
             if pv[11] > 0:
                 self._mp_pressure = bool(pv[11] >= 0.9 * self.map.max_mp)
             n_before = lc.n_loops
-            self.map = lc.on_probe_result(self.map, kid, pv, self.cam_params)
+            with self.timer.span("loop.probe", frame=self._kf_frame.get(kid)) as sp:
+                self.map = lc.on_probe_result(self.map, kid, pv, self.cam_params)
+                sp.set(closed=int(lc.n_loops > n_before))
             if lc.n_loops > n_before:
                 self.stats["n_loops"] += 1
                 if kid in self._kf_wall:
@@ -1755,7 +1787,7 @@ class Tracker:
                 self._inertial_prior = None
                 if not self._in_mapper_thread:
                     self.pose = (self.map.kf_R[kid].clone(), self.map.kf_t[kid].clone())
-                self._maybe_start_gba()
+                self._maybe_start_gba(self._kf_frame.get(kid))
                 dR, dt = lc.last_delta
                 deltas.append((dR.cpu().numpy().astype(np.float64),
                                dt.cpu().numpy().astype(np.float64)))
@@ -1770,16 +1802,17 @@ class Tracker:
         cfg = self.cfg
         if self._n_kf_host < 3:
             return
-        if cfg.mapping.covis_ba_window:
-            ids, fixed = lm_ops.covis_ba_window(
-                self.map, torch.full((), kf_id, dtype=torch.int32, device=self.device),
-                n_win=cfg.ba.window_size, n_fixed=cfg.ba.n_fixed)
-        else:
-            ids, fixed = (to_device(a, self.device) for a in fixed_ba_window(
-                self._n_kf_host, cfg.ba.window_size, cfg.ba.n_fixed))
-        self.map = _local_ba(self.map, ids, fixed, self.cam_params, float(cfg.bf),
-                             cam_model=cfg.camera.model_id,
-                             n_ba_points=cfg.ba.max_points, n_iters=cfg.ba.n_iters)
+        with self.timer.span("mapping.local_ba"):
+            if cfg.mapping.covis_ba_window:
+                ids, fixed = lm_ops.covis_ba_window(
+                    self.map, torch.full((), kf_id, dtype=torch.int32, device=self.device),
+                    n_win=cfg.ba.window_size, n_fixed=cfg.ba.n_fixed)
+            else:
+                ids, fixed = (to_device(a, self.device) for a in fixed_ba_window(
+                    self._n_kf_host, cfg.ba.window_size, cfg.ba.n_fixed))
+            self.map = _local_ba(self.map, ids, fixed, self.cam_params, float(cfg.bf),
+                                 cam_model=cfg.camera.model_id,
+                                 n_ba_points=cfg.ba.max_points, n_iters=cfg.ba.n_iters)
         self.stats["n_local_ba"] += 1
         if not self._in_mapper_thread:
             # copies: the map's rows change in place at the next keyframe
@@ -1841,7 +1874,9 @@ class Tracker:
             return
         fixed = np.zeros(C, bool)
         fixed[0] = True
-        res = self._vi_ba(sel, C, fixed, n_iters if n_iters is not None else cfg.ba.n_iters)
+        with self.timer.span("mapping.vi_window"):
+            res = self._vi_ba(sel, C, fixed,
+                              n_iters if n_iters is not None else cfg.ba.n_iters)
         if not self._in_mapper_thread:
             v = res.v[len(sel) - 1]
             R, t = self.map.kf_R[kf_id].clone(), self.map.kf_t[kf_id].clone()
@@ -1897,13 +1932,14 @@ class Tracker:
         fixed = np.zeros(C, bool)
         fixed[0] = True
         idsd, fixedd = to_device(ids, self.device), to_device(fixed, self.device)
-        for _ in range(rounds):
-            if len(sel) >= 2:
-                self.map = _local_ba(self.map, idsd, fixedd, self.cam_params, float(cfg.bf),
-                                     cam_model=cfg.camera.model_id,
-                                     n_ba_points=min(cfg.ba.max_points, self.map.max_mp),
-                                     n_iters=cfg.ba.n_iters)
-            self._run_vi_window(kf_id, window_cap=C)
+        with self.timer.span("mapping.full_vi_ba"):
+            for _ in range(rounds):
+                if len(sel) >= 2:
+                    self.map = _local_ba(self.map, idsd, fixedd, self.cam_params,
+                                         float(cfg.bf), cam_model=cfg.camera.model_id,
+                                         n_ba_points=min(cfg.ba.max_points, self.map.max_mp),
+                                         n_iters=cfg.ba.n_iters)
+                self._run_vi_window(kf_id, window_cap=C)
         if not self._in_mapper_thread:
             self.pose = (self.map.kf_R[kf_id].clone(), self.map.kf_t[kf_id].clone())
 
@@ -2259,13 +2295,14 @@ class Tracker:
             self._map_queue = None
 
     # -- the asynchronous global BA (reference :1789-1849) --------------------
-    def _maybe_start_gba(self):
+    def _maybe_start_gba(self, frame: Optional[int] = None):
         """With `async_gba`, start the post-loop global BA on its own thread
         (mpThreadGBA, LoopClosing.cc:1198), after aborting a running one (a
         newer loop supersedes it). It optimises a snapshot of the map taken
         now, in one-iteration chunks with its abort polled, and merges under
         a lock acquired by polling, so an abort can never deadlock against
-        it; `_after_merge` then moves the tracker's poses with the map."""
+        it; `_after_merge` then moves the tracker's poses with the map.
+        `frame`: the id of the frame whose loop started it, for its span."""
         lc = self.loop_closer
         if lc is None or not lc.async_gba or lc.gba_iters <= 0:
             return
@@ -2276,7 +2313,7 @@ class Tracker:
         cfg = self.cfg
 
         def run():
-            with on_device(self.device):
+            with on_device(self.device), self.timer.span("loop.gba_thread", frame=frame):
                 try:
                     m_gba = global_bundle_adjust_auto(
                         m0, self.cam_params, bf=float(cfg.bf), cam_model=cfg.camera.model_id,
