@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build: compile both CUDA kernels from `orbslam3lib_tpu_torch/csrc/` with
+  1. build: compile the CUDA sources of `orbslam3lib_tpu_torch/csrc/` with
      nvcc (sm_90a, one process per source), print the build time and ptxas's
      registers, shared memory and spills per kernel;
   2. kernels: run each kernel against its plain PyTorch version on the card,
@@ -22,7 +22,15 @@ Phases, each fatal on failure:
      1's launch is a whole frame (8 levels, both eyes), and it is also
      timed on level 0 alone and as 8 one-level launches per frame. Each
      kernel's bound (bytes or operations of this run's inputs over the
-     H100's published peaks) goes beside its time;
+     H100's published peaks) goes beside its time. The pose solve's two
+     kernels (`ops/cuda_pose.py`) on `torch_parity.pose_problem` rows at
+     POSE_SHAPES (512, the orbit's; 1,200, EuRoC's; 77, less than a block)
+     against the torch path on the same card inputs: an evaluation bit-equal
+     (`torch.equal` on r, J, chi2 and behind), one step from it within
+     POSE_STEP_TOL, and whole solves at the orbit's 2 x 2 and EuRoC's 4 x 10
+     within POSE_SOLVE_TOL with one launch per evaluation and per step; each
+     kernel timed at 512 and 1,200 rows as above, and a 4 x 10 solve's ATen
+     operations and host ms on both paths (`solve` in the pose_eval row);
   3. slice: render the bench's orbit sequence (bench.py's world, trajectory,
      seed and 640x400 rig) with the port's numpy renderer and drive
      `Tracker.process_frame` over its first N_FRAMES frames (the orbit's
@@ -213,9 +221,12 @@ Phases, each fatal on failure:
      keypoints, levels, validity and descriptors equal, u_r and depth within
      SHARDED_DEPTH_TOL, kernel 1 once per shard.
   Phases 4-15 each reset the launch counters just before their frames and
-  read them just after; each kernel must launch on each of phases 4-13
-  (counts in the kernels line, `launches_by_path`; N and X check their own
-  launches). The sequences and the depth maps
+  read them just after; each kernel must launch on each of phases 4-13,
+  except the pose kernels on phase F, whose Kannala-Brandt camera keeps the
+  torch path and must launch none (counts in the kernels line,
+  `launches_by_path`; N and X check their own launches). In phase 3 every
+  pose evaluation is the kernel's (the tracker's `pose_evals_fused` equals
+  the launches, `pose_evals_torch` is 0). The sequences and the depth maps
   render in six processes started before the card is used. Kernel 1 is
   also checked bit-exact and timed at batch 1 (one image's 8 levels, the
   mono and RGB-D frame: `batch1` in its row).
@@ -229,6 +240,7 @@ frames and configurations).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import multiprocessing
 import os
@@ -242,6 +254,10 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+# `torch_parity.pose_problem`, the pose kernels' rows (imports no JAX)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 
 N_FRAMES = 400
 # The JAX reference on the CPU, on these frames with the jolt and the kidnap
@@ -414,6 +430,16 @@ ODD_SHAPES = [(127, 203), (101, 161), (196, 314), (37, 61), (5, 7), (1, 1)]
 KNN_SHAPES = [(64, 64, True), (300, 450, True), (512, 1024, True),
               (100, 200, False), (512, 512, True), (1, 1, True),
               (33, 3000, True), (3, 16500, True)]
+# the pose solve's rows, and the largest |R| / |t| gap to the torch path of
+# one step and of a whole solve
+POSE_SHAPES = (512, 1200, 77)
+POSE_SCHEDULES = ((2, 2), (4, 10))
+POSE_STEP_TOL, POSE_SOLVE_TOL = 1e-6, 1e-5
+# bytes a row each pose kernel reads and writes: the evaluation reads
+# p_world, uv, inv_sigma2, u_right, is_stereo (29) and writes r, J, chi2,
+# behind (89); the step reads r, J, chi2, behind, inv_sigma2, delta,
+# inlier, valid (105). Their operations (~100 f32 a row) bound far lower.
+POSE_EVAL_BYTES, POSE_STEP_BYTES = 118, 105
 N_TIMED = 200
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
 # memory bytes per second,
@@ -601,6 +627,152 @@ def time_knn(dev, gen):
     return t
 
 
+def reset_launches() -> None:
+    """Zero every kernel's launch counter."""
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, cuda_pose
+    for mod in (cuda_fast, cuda_matcher, cuda_pose):
+        mod.reset_count()
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the last `reset_launches()`."""
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, cuda_pose
+    return {"fast_scores_nms": cuda_fast.launches, "knn_match_fused": cuda_matcher.launches,
+            "pose_eval": cuda_pose.eval_launches, "pose_step": cuda_pose.step_launches}
+
+
+def pose_inputs(dev, n: int, seed: int):
+    """`torch_parity.pose_problem`'s n rows on the card: (PoseObs, R0, t0,
+    [fx, fy, cx, cy])."""
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    from torch_parity import POSE_CAM, pose_problem
+    obs, _, (R0, t0) = pose_problem(n, seed)
+    o = pose_opt.PoseObs(**{k: torch.from_numpy(v).to(dev) for k, v in obs.items()})
+    return (o, *(torch.from_numpy(x).to(dev) for x in (R0, t0, POSE_CAM)))
+
+
+def pose_step_args(o):
+    """The rest of a first step's arguments: inv_sigma2, Huber delta, every
+    row an inlier, valid, the damping."""
+    from orbslam3lib_tpu_torch.utils.robust import DELTA_MONO, DELTA_STEREO
+    return (o.inv_sigma2, torch.where(o.is_stereo, DELTA_STEREO, DELTA_MONO),
+            torch.ones_like(o.inv_sigma2), o.valid.float(), 1e-3)
+
+
+@contextlib.contextmanager
+def torch_pose_path():
+    """Inside, the pose solve takes its torch path on the card too."""
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    fused = pose_opt._fused
+    pose_opt._fused = lambda R, cam_model: False
+    try:
+        yield
+    finally:
+        pose_opt._fused = fused
+
+
+def check_pose(dev):
+    """The pose kernels vs the torch path on the same card inputs: each
+    evaluation bit-equal, one step and whole solves within their limits,
+    one launch per evaluation and per step. Returns (step gap, solve gap)."""
+    from orbslam3lib_tpu_torch.ops import cuda_pose
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    from orbslam3lib_tpu_torch.utils import cameras
+    from torch_parity import POSE_BF
+    step_gap = solve_gap = 0.0
+    for n in POSE_SHAPES:
+        o, R0, t0, cam = pose_inputs(dev, n, n)
+        got = cuda_pose.pose_eval(R0, t0, o, cam, POSE_BF)
+        want = pose_opt._residuals_jacobians_torch(R0, t0, o, cameras.PINHOLE, cam, POSE_BF)
+        for name, g, w in zip(("r", "J", "chi2", "behind"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"pose_eval {name} differs at N={n} by {max_err(g, w)}")
+        R1, t1 = cuda_pose.pose_step(R0, t0, *got, *pose_step_args(o))
+        R2, t2 = pose_opt._step_torch(R0, t0, *want, *pose_step_args(o))
+        step_gap = max(step_gap, max_err(R1, R2), max_err(t1, t2))
+        for rounds, iters in POSE_SCHEDULES:
+            before = launch_counts()
+            Rk, tk, _, _ = pose_opt.pose_optimization(R0, t0, o, cam, bf=POSE_BF,
+                                                      n_rounds=rounds, iters_per_round=iters)
+            made = [launch_counts()[k] - before[k] for k in ("pose_eval", "pose_step")]
+            if made != [rounds * (iters + 1), rounds * iters]:
+                raise AssertionError(f"a {rounds} x {iters} solve at N={n} made {made} launches")
+            with torch_pose_path():
+                Rt, tt, _, _ = pose_opt.pose_optimization(R0, t0, o, cam, bf=POSE_BF,
+                                                          n_rounds=rounds, iters_per_round=iters)
+            solve_gap = max(solve_gap, max_err(Rk, Rt), max_err(tk, tt))
+    if step_gap > POSE_STEP_TOL or solve_gap > POSE_SOLVE_TOL:
+        raise AssertionError(f"pose kernels off the torch path: step {step_gap}, "
+                             f"solve {solve_gap}")
+    log(f"[smoke] pose_eval bit-equal at N = {POSE_SHAPES}; a step within {step_gap:.3g}, "
+        f"solves {POSE_SCHEDULES} within {solve_gap:.3g} of the torch path")
+    return step_gap, solve_gap
+
+
+def time_pose(dev, n: int):
+    """Both pose kernels at n rows, as time_knn; `plain_ms` is the torch
+    path's evaluation and step."""
+    from orbslam3lib_tpu_torch.device import device_ms_per_launch
+    from orbslam3lib_tpu_torch.ops import cuda_pose
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    from orbslam3lib_tpu_torch.utils import cameras
+    from torch_parity import POSE_BF
+    o, R0, t0, cam = pose_inputs(dev, n, n)
+    ev, rest = cuda_pose.pose_eval(R0, t0, o, cam, POSE_BF), pose_step_args(o)
+    runs = {"pose_eval": (lambda: cuda_pose.pose_eval(R0, t0, o, cam, POSE_BF),
+                          lambda: pose_opt._residuals_jacobians_torch(
+                              R0, t0, o, cameras.PINHOLE, cam, POSE_BF), POSE_EVAL_BYTES),
+            "pose_step": (lambda: cuda_pose.pose_step(R0, t0, *ev, *rest),
+                          lambda: pose_opt._step_torch(R0, t0, *ev, *rest), POSE_STEP_BYTES)}
+    out = {}
+    for name, (fn, plain, row_bytes) in runs.items():
+        t = {"ms": device_ms_per_launch(fn, N_TIMED, graph=True),
+             "loop_ms": device_ms_per_launch(fn, N_TIMED),
+             "call_ms": call_ms(fn),
+             "plain_ms": device_ms_per_launch(plain, 50, 5)}
+        t["bound_ms"], t["bound_by"] = bound(row_bytes * n, 0)
+        out[name] = t
+    return out
+
+
+class CountOps(TorchDispatchMode):
+    """Counts the ATen operations dispatched inside."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def pose_solve_cost(dev, n: int = 1200, rounds: int = 4, iters: int = 10):
+    """A rounds x iters solve of n rows on the kernels and on the torch
+    path: ATen operations dispatched and host ms (synchronised after each
+    of 20)."""
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    from torch_parity import POSE_BF
+    o, R0, t0, cam = pose_inputs(dev, n, n)
+
+    def solve():
+        return pose_opt.pose_optimization(R0, t0, o, cam, bf=POSE_BF, n_rounds=rounds,
+                                          iters_per_round=iters)
+
+    out = {"n": n, "schedule": [rounds, iters]}
+    for path, where in (("kernels", contextlib.nullcontext), ("torch", torch_pose_path)):
+        with where():
+            with CountOps() as c:
+                solve()
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            for _ in range(20):
+                solve()
+                torch.cuda.synchronize()
+            out[path] = {"aten_ops": c.n, "host_ms": (time.perf_counter() - t0_) / 20 * 1e3}
+    return out
+
+
 def ptxas_report(log_text: str):
     """Per kernel (demangled-ish name): registers, shared memory bytes and
     spill stores/loads, from nvcc -Xptxas -v."""
@@ -608,7 +780,8 @@ def ptxas_report(log_text: str):
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = next((k for k in ("fast_nms_levels_kernel", "knn2_kernel")
+            name = next((k for k in ("fast_nms_levels_kernel", "knn2_kernel",
+                                     "pose_eval_kernel", "pose_step_kernel")
                          if k in m.group(1)), m.group(1))
             out[name] = {}
             continue
@@ -701,22 +874,19 @@ def run_system(cfg, frames, dev, setup=None):
     the system is built and before the counters are zeroed. Returns the
     system, the per-frame results and host ms, and the kernel launches made
     during the frames."""
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
     from orbslam3lib_tpu_torch.system import System
     sys_ = System(cfg, "stereo", device=dev)
     if setup is not None:
         setup(sys_)
     torch.cuda.synchronize()
-    cuda_fast.reset_count()
-    cuda_matcher.reset_count()
+    reset_launches()
     results, frame_ms = [], []
     for img, stamp in frames:
         t0 = time.perf_counter()
         results.append(sys_.track_stereo(img, stamp))
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"fast_scores_nms": cuda_fast.launches,
-                "knn_match_fused": cuda_matcher.launches}
+    launches = launch_counts()
     sys_.shutdown()
     return sys_, results, frame_ms, launches
 
@@ -890,7 +1060,6 @@ def phase_compact(dev, imgs, ts, rig):
 def phase_production(dev, imgs, ts, rig, sync_median_ms):
     """Phase P: bench.py's full_slam protocol on the port."""
     from orbslam3lib_tpu_torch.io.synthetic import orbit_tracking_config
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
     from orbslam3lib_tpu_torch.tracking.tracker import OK, Tracker
     cfg = orbit_tracking_config(rig)
     cfg.mapping.async_gba = True
@@ -931,8 +1100,7 @@ def phase_production(dev, imgs, ts, rig, sync_median_ms):
         consume_logged, probes_logged, merge_logged, finalize_logged
     frames = [(imgs[i], float(ts[i])) for i in range(N_PRODUCTION)]
     torch.cuda.synchronize()
-    cuda_fast.reset_count()
-    cuda_matcher.reset_count()
+    reset_launches()
     t0 = time.perf_counter()
     # populate: dense keyframes, mapping inline (the queue detached), as bench
     kf_ratio = cfg.tracker.kf_ref_ratio
@@ -972,8 +1140,7 @@ def phase_production(dev, imgs, ts, rig, sync_median_ms):
                         tr.stats["track_fail"] - fails, int(tr.map.n_kf), tr.stats["n_loops"]))
     tr.finish()
     torch.cuda.synchronize()
-    launches = {"fast_scores_nms": cuda_fast.launches,
-                "knn_match_fused": cuda_matcher.launches}
+    launches = launch_counts()
     ate = trajectory_ate(tr, ts)
     kf_ate_m, _ = kf_ate(tr.map, float(ts[0]))
     st = dict(tr.stats)
@@ -1031,7 +1198,7 @@ def phase_multimap(dev, imgs, ts, rig):
     from orbslam3lib_tpu_torch.mapping import sim3 as sim3_mod
     from orbslam3lib_tpu_torch.models import map_state as ms
     from orbslam3lib_tpu_torch.models.atlas import Atlas
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
+    from orbslam3lib_tpu_torch.ops import cuda_matcher
     from orbslam3lib_tpu_torch.system import System
     from orbslam3lib_tpu_torch.tracking.tracker import Tracker
     g0, g1 = MULTIMAP_GREY
@@ -1089,8 +1256,7 @@ def phase_multimap(dev, imgs, ts, rig):
         lc_mod.MapMerger.on_keyframe = on_keyframe
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cuda_fast.reset_count()
-        cuda_matcher.reset_count()
+        reset_launches()
         states, poses, frame_ms, snaps, peak = [], [], [], {}, {}
         origin_a = None
         for i, (img, stamp) in enumerate(frames):
@@ -1117,8 +1283,7 @@ def phase_multimap(dev, imgs, ts, rig):
                     sys_.save_atlas(path)
                     snaps[key] = (path, [{k: v.copy() for k, v in ms.to_numpy(m).items()}
                                          for m in tr.atlas.maps], sys_.map_info(), i)
-        launches = {"fast_scores_nms": cuda_fast.launches,
-                    "knn_match_fused": cuda_matcher.launches}
+        launches = launch_counts()
         torch.cuda.synchronize()
     finally:
         for o, n, f in saved:
@@ -1212,12 +1377,10 @@ def run_frames(sys_, frames, jolt_frame, dev):
     prior before frame `jolt_frame`, each frame synchronised; the launch
     counters zeroed just before and read just after. Returns the results,
     host ms per frame and the launches."""
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
     entry = sys_.track_monocular if sys_.sensor == "mono" else sys_.track_rgbd
     jolt = jolt_prior(dev)
     torch.cuda.synchronize()
-    cuda_fast.reset_count()
-    cuda_matcher.reset_count()
+    reset_launches()
     results, frame_ms = [], []
     for i, args in enumerate(frames):
         if i == jolt_frame:
@@ -1226,8 +1389,7 @@ def run_frames(sys_, frames, jolt_frame, dev):
         results.append(entry(*args))
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"fast_scores_nms": cuda_fast.launches,
-                "knn_match_fused": cuda_matcher.launches}
+    launches = launch_counts()
     return results, frame_ms, launches
 
 
@@ -1384,7 +1546,6 @@ def phase_imu(dev, imgs, ts, imu):
     from orbslam3lib_tpu_torch.device import card_line
     from orbslam3lib_tpu_torch.evaluation import imu_report
     from orbslam3lib_tpu_torch.io.synthetic import StereoRig, orbit_tracking_config
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
     from orbslam3lib_tpu_torch.system import System
     from orbslam3lib_tpu_torch.tracking import tracker as ttr
     sys_ = System(orbit_tracking_config(StereoRig()), "imu_stereo", device=dev)
@@ -1409,8 +1570,7 @@ def phase_imu(dev, imgs, ts, imu):
     jolt = torch.tensor(IMU_JOLT_V, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_fast.reset_count()
-    cuda_matcher.reset_count()
+    reset_launches()
     results, frame_ms, fallback_frames = [], [], []
     try:
         for i in range(N_IMU):
@@ -1427,8 +1587,7 @@ def phase_imu(dev, imgs, ts, imu):
                              ("viba2_frame", tr._viba_stage >= 2)):
                 if ev[key] is None and hit:
                     ev[key] = i
-        launches = {"fast_scores_nms": cuda_fast.launches,
-                    "knn_match_fused": cuda_matcher.launches}
+        launches = launch_counts()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         feed_launches = feed_imu_launches(tr, imu[1])
     finally:
@@ -1534,7 +1693,6 @@ def phase_imu_mono(dev, imgs, ts, imu):
     from orbslam3lib_tpu_torch.device import card_line
     from orbslam3lib_tpu_torch.evaluation import imu_mono_report
     from orbslam3lib_tpu_torch.io.synthetic import StereoRig, orbit_tracking_config
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
     from orbslam3lib_tpu_torch.system import System
     from orbslam3lib_tpu_torch.tracking import tracker as ttr
     sys_ = System(orbit_tracking_config(StereoRig()), "imu_mono", device=dev)
@@ -1562,8 +1720,7 @@ def phase_imu_mono(dev, imgs, ts, imu):
           "viba2_frame": None}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_fast.reset_count()
-    cuda_matcher.reset_count()
+    reset_launches()
     results, frame_ms, fallback_frames = [], [], []
     try:
         for i in range(N_IMU_MONO):
@@ -1581,8 +1738,7 @@ def phase_imu_mono(dev, imgs, ts, imu):
                              ("viba2_frame", tr._viba_stage >= 2)):
                 if ev[key] is None and hit:
                     ev[key] = i
-        launches = {"fast_scores_nms": cuda_fast.launches,
-                    "knn_match_fused": cuda_matcher.launches}
+        launches = launch_counts()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
     finally:
         ttr.local_inertial_ba, ttr.inertial_init_optimization = saved
@@ -1715,7 +1871,6 @@ def phase_native(dev, tracker):
     from orbslam3lib_tpu_torch import native
     from orbslam3lib_tpu_torch.mapping.loop_closing import LoopCloser
     from orbslam3lib_tpu_torch.models import map_state as ms, vocabulary as vb
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
     from orbslam3lib_tpu_torch.tracking.reloc import PlaceRecognition
     t0 = time.perf_counter()
     native.build()                  # a failed build raises: no dense fallback here
@@ -1755,8 +1910,7 @@ def phase_native(dev, tracker):
     nb_probe = native.NativeBowDatabase(voc, K)
     lc = LoopCloser(tracker.cfg, nb_probe, fix_scale=True)
     torch.cuda.synchronize()
-    cuda_fast.reset_count()
-    cuda_matcher.reset_count()
+    reset_launches()
     packs, probe_ms = [], []
     for i, k in enumerate(ids):
         nb_probe.add(int(k), desc_h[k], valid_h[k])
@@ -1768,7 +1922,7 @@ def phase_native(dev, tracker):
         packs.append(pack)
         m2 = lc.on_probe_result(m2, int(k), pack, tracker.cam_params)
     torch.cuda.synchronize()
-    launches = {"fast_scores_nms": cuda_fast.launches, "knn_match_fused": cuda_matcher.launches}
+    launches = launch_counts()
     log(f"[smoke] N (native BoW, g++ build {build_s:.2f} s): {len(ids)} keyframes; word ids "
         f"equal {words_equal}; scores max |native - dense| {score_err:.3g}; top-3 equal "
         f"{top3_equal}; query: native host {np.median(host_ms):.4f} ms, dense device "
@@ -1827,7 +1981,6 @@ def phase_sharded(dev, tracker, imgs):
                                                       global_bundle_adjust_dist)
     from orbslam3lib_tpu_torch.models import map_state as ms
     from orbslam3lib_tpu_torch.models.serialization import load_map, save_map
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher
     from orbslam3lib_tpu_torch.ops.extractor import extract_orb_stereo
     from orbslam3lib_tpu_torch.parallel.dist_ba import DeviceMesh, reduction_numel
     from orbslam3lib_tpu_torch.parallel.dist_frontend import make_sharded_frontend
@@ -1898,13 +2051,12 @@ def phase_sharded(dev, tracker, imgs):
     front = make_sharded_frontend(DeviceMesh([card] * 2), bf=bf, min_z=float(cfg.stereo.min_z),
                                   max_kp=cfg.orb.max_kp, n_levels=cfg.orb.n_levels)
     torch.cuda.synchronize()
-    cuda_fast.reset_count()
-    cuda_matcher.reset_count()
+    reset_launches()
     t0 = time.perf_counter()
     out = front(frames, ths)
     torch.cuda.synchronize()
     front_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"fast_scores_nms": cuda_fast.launches, "knn_match_fused": cuda_matcher.launches}
+    launches = launch_counts()
     ints_equal, depth_err = True, 0.0
     per = N_SHARDED_FRAMES // 2
     for g in range(N_SHARDED_FRAMES):
@@ -1966,7 +2118,7 @@ def run(jobs, t_start) -> int:
     from orbslam3lib_tpu_torch.evaluation import ate_rmse
     from orbslam3lib_tpu_torch.io.synthetic import orbit_pose_at, orbit_tracking_config
     from orbslam3lib_tpu_torch.mapping import loop_closing as lc_mod
-    from orbslam3lib_tpu_torch.ops import _cuda_lib, cuda_fast, cuda_matcher, pyramid
+    from orbslam3lib_tpu_torch.ops import _cuda_lib, pyramid
     from orbslam3lib_tpu_torch.ops.extractor import extract_orb_stereo
     from orbslam3lib_tpu_torch.tracking import tracker as ttr
     from orbslam3lib_tpu_torch.tracking.tracker import OK, Tracker
@@ -2005,6 +2157,15 @@ def run(jobs, t_start) -> int:
     log("[smoke] knn_match_fused (512x512), ms: "
         + ", ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in knn_t.items()))
+    pose_gaps = check_pose(dev)
+    pose_t = {n: time_pose(dev, n) for n in POSE_SHAPES[:2]}
+    pose_solve = pose_solve_cost(dev)
+    for n, by_kernel in pose_t.items():
+        for name, t in by_kernel.items():
+            log(f"[smoke] {name} ({n} rows), ms: "
+                + ", ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+                            for k, v in t.items()))
+    log(f"[smoke] one solve on the kernels and on the torch path: {pose_solve}")
 
     cfg = orbit_tracking_config(rig)
     img0 = torch.as_tensor(imgs[0], device=dev)
@@ -2041,8 +2202,7 @@ def run(jobs, t_start) -> int:
     frames = [(imgs[i], float(ts[i])) for i in range(N_FRAMES)] + \
         [(imgs[kid + i], float(ts[-1]) + (i + 1) * dt) for i in range(3)]
     torch.cuda.synchronize()
-    cuda_fast.reset_count()
-    cuda_matcher.reset_count()
+    reset_launches()
     frame_ms, results, loop_frame, kf_ate_m, loop_pair = [], [], None, None, None
     for i, (img, stamp) in enumerate(frames):
         if i == JOLT_FRAME:
@@ -2060,8 +2220,7 @@ def run(jobs, t_start) -> int:
             traj_before = tracker.trajectory_centers()
             fail_before = tracker.stats["track_fail"]
             loop_pair = list(tracker.loop_closer.loop_edges)
-    launches = {"fast_scores_nms": cuda_fast.launches,
-                "knn_match_fused": cuda_matcher.launches}
+    launches = launch_counts()
     torch.cuda.synchronize()
     # the later phases run unpatched
     (ttr.mapper_step_fused, ttr._local_ba, lc_mod.loop_probe, lc_mod.verify_loop_fused,
@@ -2155,6 +2314,9 @@ def run(jobs, t_start) -> int:
         "kernel 1 once per frame":
             launches["fast_scores_nms"] == len(frames),
         "kernel 2 at least once per probed keyframe": launches["knn_match_fused"] >= n_probes,
+        "every pose evaluation by the kernel": st["pose_evals_torch"] == 0
+            and launches["pose_eval"] == st["pose_evals_fused"] > 0
+            and launches["pose_step"] > 0,
         "finite poses": bool(np.isfinite(centers).all()) and len(centers) == len(frames),
         "ATE within bound": ate <= ATE_BOUND_M,
         "keyframe ATE within bound": kf_ate_m <= KF_ATE_BOUND_M,
@@ -2200,8 +2362,11 @@ def run(jobs, t_start) -> int:
     for path, counts in by_path.items():
         for name, n in counts.items():
             # N launches kernel 2 only in a verification and no kernel 1; X
-            # no kernel 2 (their own checks say what they must launch)
-            if path not in ("N", "X"):
+            # no kernel 2 (their own checks say what they must launch); the
+            # Kannala-Brandt camera keeps the pose solve's torch path
+            if path == "kb8" and name.startswith("pose_"):
+                checks[f"{name} not launched on the {path} path"] = n == 0
+            elif path not in ("N", "X"):
                 checks[f"{name} launched on the {path} path"] = n >= 1
     log(f"[smoke] rendering (in worker processes): radtan {render_d:.1f} s, kb8 "
         f"{render_f:.1f} s, depth maps {render_r:.1f} s, corridor and IMU {render_i:.1f} s, "
@@ -2227,6 +2392,19 @@ def run(jobs, t_start) -> int:
          "launches": launches["knn_match_fused"], "max_abs_err": knn_err,
          **knn_t, "library_ms": None, "ptxas": ptxas.get("knn2_kernel"),
          "launches_by_path": {p: c["knn_match_fused"] for p, c in by_path.items()}},
+        {"name": "pose_eval", "route": "cuda", "source": src + "pose_opt.cu",
+         "replaces": "orbslam3lib_tpu/tracking/pose_opt.py:47",
+         "launches": launches["pose_eval"], "max_abs_err": 0.0,
+         **pose_t[1200]["pose_eval"], "library_ms": None, "ptxas": ptxas.get("pose_eval_kernel"),
+         "n512": pose_t[512]["pose_eval"], "solve": pose_solve,
+         "launches_by_path": {p: c["pose_eval"] for p, c in by_path.items()}},
+        {"name": "pose_step", "route": "cuda", "source": src + "pose_opt.cu",
+         "replaces": "orbslam3lib_tpu/tracking/pose_opt.py:84",
+         "launches": launches["pose_step"], "max_abs_err": pose_gaps[0],
+         "solve_max_abs_err": pose_gaps[1],
+         **pose_t[1200]["pose_step"], "library_ms": None, "ptxas": ptxas.get("pose_step_kernel"),
+         "n512": pose_t[512]["pose_step"],
+         "launches_by_path": {p: c["pose_step"] for p, c in by_path.items()}},
     ]}
     log(f"[smoke] total command time {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -25,15 +25,17 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "orbslam3lib_tpu_torch"
 LIB_PATH = BUILD_DIR / "libkernels.so"
-SOURCES = ("fast_nms.cu", "knn2.cu")
+SOURCES = ("fast_nms.cu", "knn2.cu", "pose_opt.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "fast_nms_levels_launch": (_P, _I, _P, _I, _P),
     "knn2_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
+    "pose_eval_launch": (_P,) * 8 + (_F, _I) + (_P,) * 5,
+    "pose_step_launch": (_P,) * 10 + (_F, _I) + (_P,) * 3,
 }
 
 _lock = threading.Lock()

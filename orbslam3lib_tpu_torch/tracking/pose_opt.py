@@ -8,6 +8,14 @@ Between rounds the chi2 outlier classification is redone (5.991 mono /
 7.815 stereo); outliers leave the next round's normal equations but are
 re-tested every round. The rounds and iterations are a Python loop (the
 reference's fori_loop/scan).
+
+On CUDA tensors with the pinhole camera each evaluation of the residuals
+and Jacobians and each step is one kernel launch (`ops/cuda_pose.py`,
+`csrc/pose_opt.cu`); elsewhere both run as the torch ops below, their
+plain versions (`_residuals_jacobians_torch`, `_step_torch`). The loop,
+and its `iters_per_round + 1` calls a round of `_residuals_jacobians`
+through this module, are the same on both paths. `evals_torch` counts the
+torch path's evaluations, `cuda_pose.eval_launches` the kernel's.
 """
 from __future__ import annotations
 
@@ -15,8 +23,17 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import cuda_pose
 from ..utils import cameras, lie
 from ..utils.robust import CHI2_MONO, CHI2_STEREO, DELTA_MONO, DELTA_STEREO, huber_weight
+
+
+evals_torch = 0   # evaluations by the torch ops (a host count)
+
+
+def _fused(R, cam_model: int) -> bool:
+    """Whether the solve at R runs its kernels: CUDA tensors, pinhole."""
+    return R.is_cuda and cam_model == cameras.PINHOLE
 
 
 class PoseObs(NamedTuple):
@@ -41,6 +58,15 @@ def _residuals_jacobians(R, t, obs: PoseObs, cam_model: int, cam_params, bf):
     residual u - bf/z. Left-multiplicative update xi = [rho, phi]:
     d(p_c)/d(xi) = [I | -hat(p_c)].
     """
+    global evals_torch
+    if _fused(R, cam_model):
+        return cuda_pose.pose_eval(R, t, obs, cam_params, bf)
+    evals_torch += 1
+    return _residuals_jacobians_torch(R, t, obs, cam_model, cam_params, bf)
+
+
+def _residuals_jacobians_torch(R, t, obs: PoseObs, cam_model: int, cam_params, bf):
+    """`_residuals_jacobians` as torch ops, any device and camera model."""
     p_c = lie.se3_apply(R, t, obs.p_world)
     uv_hat = cameras.project(cam_model, cam_params, p_c)
     z = p_c[..., 2]
@@ -76,7 +102,7 @@ def pose_optimization(R0, t0, obs: PoseObs, cam_params,
     chi2_th = torch.where(obs.is_stereo, CHI2_STEREO, CHI2_MONO)
     delta = torch.where(obs.is_stereo, DELTA_STEREO, DELTA_MONO)
     dev, dt = R0.device, R0.dtype
-    eye6 = torch.eye(6, dtype=dt, device=dev)
+    step = cuda_pose.pose_step if _fused(R0, cam_model) else _step_torch
     valid_f = obs.valid.to(dt)
 
     R, t = R0, t0
@@ -85,19 +111,28 @@ def pose_optimization(R0, t0, obs: PoseObs, cam_params,
         for _ in range(iters_per_round):
             r, J, chi2, behind = _residuals_jacobians(R, t, obs, cam_model,
                                                       cam_params, bf)
-            w = obs.inv_sigma2 * huber_weight(chi2, delta) * inlier * valid_f \
-                * (~behind).to(dt)
-            Jw = J * w[:, None, None]
-            H = torch.einsum("nri,nrj->ij", Jw, J)
-            b = torch.einsum("nri,nr->i", Jw, r)
-            H = H + lm_lambda * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
-            # solve_ex: no singularity check, which would wait for the card
-            dx = -torch.linalg.solve_ex(H, b)[0]
-            dR, dtr = lie.se3_exp(dx)
-            R, t = lie.se3_compose(dR, dtr, R, t)
-            R = lie.normalize_rotation(R)
+            R, t = step(R, t, r, J, chi2, behind, obs.inv_sigma2, delta, inlier,
+                        valid_f, lm_lambda)
         _, _, chi2, behind = _residuals_jacobians(R, t, obs, cam_model,
                                                   cam_params, bf)
         inlier = ((chi2 <= chi2_th) & ~behind).to(dt)
     inlier_mask = (inlier > 0) & obs.valid
     return R, t, inlier_mask, torch.sum(inlier_mask.to(torch.int32))
+
+
+def _step_torch(R, t, r, J, chi2, behind, inv_sigma2, delta, inlier, valid,
+                lm_lambda: float):
+    """One damped Gauss-Newton step from (R, t) as torch ops: the contract
+    of `cuda_pose.pose_step`."""
+    dt = R.dtype
+    w = inv_sigma2 * huber_weight(chi2, delta) * inlier * valid * (~behind).to(dt)
+    Jw = J * w[:, None, None]
+    H = torch.einsum("nri,nrj->ij", Jw, J)
+    b = torch.einsum("nri,nr->i", Jw, r)
+    H = H + lm_lambda * torch.diag(torch.diagonal(H)) \
+        + 1e-8 * torch.eye(6, dtype=dt, device=R.device)
+    # solve_ex: no singularity check, which would wait for the card
+    dx = -torch.linalg.solve_ex(H, b)[0]
+    dR, dtr = lie.se3_exp(dx)
+    R, t = lie.se3_compose(dR, dtr, R, t)
+    return lie.normalize_rotation(R), t

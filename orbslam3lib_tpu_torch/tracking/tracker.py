@@ -134,6 +134,7 @@ camera, a distorted stereo rig without rectify or fisheye.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import sys
@@ -159,13 +160,14 @@ from ..models import map_state as ms
 from ..models.atlas import Atlas, transform_map
 from ..models.vocabulary import (DEFAULT_VOCAB_PATH, bow_from_descriptors,
                                  load_vocabulary, train_vocabulary)
+from ..ops import cuda_pose
 from ..ops.extractor import (Features, ThresholdController, extract_orb_mono,
                              extract_orb_stereo)
 from ..ops.pyramid import scale_factors_on
 from ..utils import cameras, lie, rectify
 from ..utils.timing import StageTimer
 from . import imu as imu_mod
-from . import matching
+from . import matching, pose_opt
 from .inertial_opt import (InertialFrameState, inertial_init_optimization,
                            pose_inertial_optimization, pose_inertial_optimization_last_frame)
 from .pose_opt import PoseObs, pose_optimization
@@ -177,6 +179,16 @@ NOT_INITIALIZED = 0
 OK = 1
 RECENTLY_LOST = 2
 LOST = 3
+
+# stats keys: the motion-only pose solve's evaluations by the kernel and by
+# the torch ops (`pose_opt`), in the order `_pose_evals` gives them
+POSE_EVAL_KEYS = ("pose_evals_fused", "pose_evals_torch")
+
+
+def _pose_evals():
+    """The pose solve's evaluations made so far in this process, by the
+    kernel and by the torch ops."""
+    return cuda_pose.eval_launches, pose_opt.evals_torch
 
 
 def _local_map_mask(m: ms.MapState, prev_mp: torch.Tensor,
@@ -629,7 +641,8 @@ class Tracker:
                       "n_resets": 0, "n_new_maps": 0, "n_map_merges": 0,
                       "n_mapping_steps": 0, "n_local_ba": 0, "n_compactions": 0,
                       "mapper_errors": 0, "n_gba_started": 0, "n_gba_merged": 0,
-                      "n_gba_aborted": 0, "gba_errors": 0, "frames_skipped": 0}
+                      "n_gba_aborted": 0, "gba_errors": 0, "frames_skipped": 0,
+                      "pose_evals_fused": 0, "pose_evals_torch": 0}
         self.errors: List[str] = []   # tracebacks of the threads' caught failures
         self._th_far = (float(cfg.tracker.th_far_points)
                         if cfg.tracker.th_far_points > 0 else None)
@@ -822,7 +835,7 @@ class Tracker:
         frame; on the pipelined path the state and inliers of the last
         consumed frame, with "pipelined": True. With timing on, the frame is
         the root span `frame` of everything it runs."""
-        with self.timer.span("frame", frame=self.frame_id):
+        with self.timer.span("frame", frame=self.frame_id), self._counting_pose_evals():
             return self._process_frame(img, ts, depth_map)
 
     def _process_frame(self, img, ts: float, depth_map) -> dict:
@@ -1118,6 +1131,26 @@ class Tracker:
         R0, t0 = lie.se3_compose(Rv, tv, R_last, t_last)
         return R0, t0, self.frame_state_v
 
+    @contextlib.contextmanager
+    def _search_span(self):
+        """The `track.search` span, counting the pose solve's evaluations
+        made inside it by the kernel and by the torch ops."""
+        before = _pose_evals()
+        with self.timer.span("track.search") as span:
+            yield
+            span.set(**{k: now - then
+                        for k, now, then in zip(POSE_EVAL_KEYS, _pose_evals(), before)})
+
+    @contextlib.contextmanager
+    def _counting_pose_evals(self):
+        """Adds the pose solve's evaluations made inside (every solve of
+        tracking, the fallback, relocalisation and the pipelined frames)
+        to the stats."""
+        before = _pose_evals()
+        yield
+        for k, now, then in zip(POSE_EVAL_KEYS, _pose_evals(), before):
+            self.stats[k] += now - then
+
     def _track(self, feats: Features, u_r, depth, ts) -> dict:
         cfg = self.cfg
         R_last, t_last = (self._dev(x) for x in self.pose)
@@ -1128,7 +1161,7 @@ class Tracker:
         # local map (None right after init: both stages search the map)
         local = bool(cfg.tracker.local_map_tracking)
         prev = self._prev_feat_mp if local else None
-        with self.timer.span("track.search"):
+        with self._search_span():
             (R, t, mp_feat, _, n_inl, visible, obs, _, feat_mp_out) = _two_stage_core(
                 self.map, R0, t0, *f0, u_r, depth, self.cam_params,
                 prev_mp=prev, prev_angle=self._prev_feat_angle if prev is not None else None,
@@ -1171,7 +1204,7 @@ class Tracker:
                     cam_model=cfg.camera.model_id, bf=float(cfg.bf),
                     n_levels=cfg.orb.n_levels)
             if int(n_ref) >= min_inl:
-                with self.timer.span("track.search"):
+                with self._search_span():
                     (R, t, mp_feat, _, n_inl, visible, _, _, feat_mp_out) = \
                         _two_stage_core(self.map, R_ref, t_ref, *f0, u_r, depth,
                                         self.cam_params, **self._track_args())
@@ -2227,7 +2260,8 @@ class Tracker:
     def finish(self):
         """Flush the pipeline and wait for the mapper's queue and a running
         GBA (the end of a sequence, before reading the trajectory)."""
-        self._drain_pipeline()
+        with self._counting_pose_evals():
+            self._drain_pipeline()
         self.wait_mapping_idle()
         self.wait_gba()
 

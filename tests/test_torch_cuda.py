@@ -9,7 +9,8 @@ the monocular and the RGB-D sensor on the card against the CPU; the
 inertial solvers (and the per-frame solve replayed from a CUDA graph), the
 windowed VI-BA, `System("imu_mono")` (through its guard's abort on the
 corridor, and through a successful IMU initialisation on phase J's excited
-corridor) and the inertial map merge on the card against the CPU (marker
+corridor) and the inertial map merge on the card against the CPU; the
+pose solve's two kernels against its torch path on the card (marker
 `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
@@ -39,6 +40,20 @@ def _bits(rng, na, nb, masked):
     av = rng.random(na) < 0.9 if masked else None
     bv = rng.random(nb) < 0.9 if masked else None
     return a, b, av, bv
+
+
+POSE_EVALS = ("pose_evals_fused", "pose_evals_torch")
+
+
+def assert_same_stats(card: dict, cpu: dict) -> None:
+    """The same stats on the card and the CPU, but for which path made the
+    pose solve's evaluations: as many on both, on the CPU all by the torch
+    ops (on a pinhole card the kernels make them)."""
+    def strip(st):
+        return {k: v for k, v in st.items() if k not in POSE_EVALS}
+    assert strip(card) == strip(cpu)
+    assert sum(card[k] for k in POSE_EVALS) == sum(cpu[k] for k in POSE_EVALS)
+    assert cpu["pose_evals_fused"] == 0
 
 
 @pytest.fixture
@@ -131,7 +146,9 @@ def test_slice_with_back_end_on_card_matches_cpu(cuda_device):
         for tr in trackers:
             tr.process_frame(img, float(stamp))
     cpu, card = trackers
-    assert card.stats == cpu.stats and cpu.stats["n_local_ba"] >= 2
+    assert_same_stats(card.stats, cpu.stats)
+    assert cpu.stats["n_local_ba"] >= 2
+    assert card.stats["pose_evals_torch"] == 0 < card.stats["pose_evals_fused"]
     m_cpu, m_card = cpu.map, card.map
     assert torch.equal(m_card.kf_valid.cpu(), m_cpu.kf_valid)
     assert torch.equal(m_card.kf_parent.cpu(), m_cpu.kf_parent)
@@ -348,7 +365,7 @@ def test_system_on_card_matches_cpu(cuda_device, rig_name):
         for s in systems:
             s.track_stereo(img, float(stamp))
     cpu, card = systems
-    assert card.get_stats() == cpu.get_stats()
+    assert_same_stats(card.get_stats(), cpu.get_stats())
     assert card.get_tracking_state() == cpu.get_tracking_state() == 1
     np.testing.assert_allclose(card.tracker.trajectory_centers(),
                                cpu.tracker.trajectory_centers(), rtol=0, atol=5e-3)
@@ -413,7 +430,8 @@ def test_compaction_on_card_matches_cpu(cuda_device):
         for tr in trackers:
             tr.process_frame(img, float(stamp))
     cpu, card = trackers
-    assert card.stats == cpu.stats and cpu.stats["n_compactions"] >= 1
+    assert_same_stats(card.stats, cpu.stats)
+    assert cpu.stats["n_compactions"] >= 1
     np.testing.assert_allclose(card.trajectory_centers(), cpu.trajectory_centers(),
                                rtol=0, atol=5e-3)
     arrays = ms.to_numpy(cpu.map)
@@ -444,7 +462,8 @@ def test_pipelined_on_card_matches_cpu(cuda_device):
     for tr in trackers:
         tr.finish()
     cpu, card = trackers
-    assert card.stats == cpu.stats and cpu.stats["n_kf"] >= 10
+    assert_same_stats(card.stats, cpu.stats)
+    assert cpu.stats["n_kf"] >= 10
     assert len(card.trajectory) == len(imgs)
     np.testing.assert_allclose(card.trajectory_centers(), cpu.trajectory_centers(),
                                rtol=0, atol=1e-3)
@@ -755,7 +774,7 @@ def test_rgbd_system_on_card_matches_cpu(cuda_device):
         for s in systems:
             s.track_rgbd(img, d, float(stamp))
     cpu, card = systems
-    assert card.get_stats() == cpu.get_stats()
+    assert_same_stats(card.get_stats(), cpu.get_stats())
     assert card.get_tracking_state() == cpu.get_tracking_state() == 1
     np.testing.assert_allclose(card.tracker.trajectory_centers(),
                                cpu.tracker.trajectory_centers(), rtol=0, atol=5e-3)
@@ -1175,3 +1194,117 @@ def test_native_bow_against_dense_on_card(cuda_device):
         ids_d, s_d = dense.query(d, v, n_best=3)
         assert np.array_equal(ids_n, ids_d.cpu().numpy()), k
         np.testing.assert_allclose(s_n, s_d.cpu().numpy(), rtol=0, atol=1e-5)
+
+
+def _pose_inputs(n, seed, device):
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    from torch_parity import POSE_CAM, pose_problem
+    obs, _, (R0, t0) = pose_problem(n, seed)
+    o = pose_opt.PoseObs(**{k: torch.from_numpy(v).to(device) for k, v in obs.items()})
+    return o, torch.from_numpy(R0).to(device), torch.from_numpy(t0).to(device), \
+        torch.from_numpy(POSE_CAM).to(device)
+
+
+def _rel_err(got, want, floor=1.0) -> float:
+    """Largest |got - want| over max(|want|, floor): a relative error, and
+    an absolute one for values below `floor`."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / want.abs().clamp(min=floor)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 1200, 77])
+def test_pose_eval_kernel_matches_torch_on_card(cuda_device, n):
+    """One evaluation by the kernel against the torch path on the card, on
+    mono, stereo, invalid, outlier, behind-camera and z ~ 0 rows (77: less
+    than one block)."""
+    from orbslam3lib_tpu_torch.ops import cuda_pose
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    from orbslam3lib_tpu_torch.utils import cameras
+    from torch_parity import POSE_BF
+    o, R0, t0, cam = _pose_inputs(n, n, cuda_device)
+    before = cuda_pose.eval_launches
+    got = pose_opt._residuals_jacobians(R0, t0, o, cameras.PINHOLE, cam, POSE_BF)
+    torch.cuda.synchronize()
+    assert cuda_pose.eval_launches == before + 1
+    want = pose_opt._residuals_jacobians_torch(R0, t0, o, cameras.PINHOLE, cam, POSE_BF)
+    for name, g, w in zip(("r", "J", "chi2"), got[:3], want[:3]):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert _rel_err(g, w) <= 1e-5, (name, _rel_err(g, w))
+    assert got[3].dtype == torch.bool and torch.equal(got[3], want[3])
+
+
+@pytest.mark.cuda
+def test_pose_step_kernel_matches_torch_on_card(cuda_device):
+    """One Gauss-Newton step (a solve of one round of one iteration) by the
+    kernels against the torch path on the card, from the same evaluation."""
+    from orbslam3lib_tpu_torch.ops import cuda_pose
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    from orbslam3lib_tpu_torch.utils import cameras
+    from orbslam3lib_tpu_torch.utils.robust import DELTA_MONO, DELTA_STEREO
+    from torch_parity import POSE_BF
+    o, R0, t0, cam = _pose_inputs(1200, 3, cuda_device)
+    before = cuda_pose.step_launches
+    R1, t1, _, _ = pose_opt.pose_optimization(R0, t0, o, cam, bf=POSE_BF, n_rounds=1,
+                                              iters_per_round=1)
+    torch.cuda.synchronize()
+    assert cuda_pose.step_launches == before + 1
+    ev = pose_opt._residuals_jacobians_torch(R0, t0, o, cameras.PINHOLE, cam, POSE_BF)
+    R2, t2 = pose_opt._step_torch(R0, t0, *ev, o.inv_sigma2,
+                                  torch.where(o.is_stereo, DELTA_STEREO, DELTA_MONO),
+                                  torch.ones_like(o.inv_sigma2), o.valid.float(), 1e-3)
+    assert float((R1 - R2).abs().max()) <= 1e-6
+    assert float((t1 - t2).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rounds,iters", [(2, 2), (4, 10)])
+def test_pose_solve_kernels_match_torch_on_card(cuda_device, monkeypatch, n_rounds, iters):
+    """Whole solves at the orbit's and EuRoC's schedules: the kernels'
+    launches, and pose and inliers against the torch path on the card (the
+    inlier masks away from chi2 ties: within 1% of the gate)."""
+    from orbslam3lib_tpu_torch.ops import cuda_pose
+    from orbslam3lib_tpu_torch.tracking import pose_opt
+    from orbslam3lib_tpu_torch.utils import cameras
+    from torch_parity import POSE_BF
+    o, R0, t0, cam = _pose_inputs(1200, 11, cuda_device)
+    launches = cuda_pose.eval_launches, cuda_pose.step_launches
+    Rk, tk, inl_k, n_k = pose_opt.pose_optimization(R0, t0, o, cam, bf=POSE_BF,
+                                                    n_rounds=n_rounds, iters_per_round=iters)
+    torch.cuda.synchronize()
+    assert cuda_pose.eval_launches - launches[0] == n_rounds * (iters + 1)
+    assert cuda_pose.step_launches - launches[1] == n_rounds * iters
+    monkeypatch.setattr(pose_opt, "_fused", lambda R, model: False)
+    Rt, tt, inl_t, n_t = pose_opt.pose_optimization(R0, t0, o, cam, bf=POSE_BF,
+                                                    n_rounds=n_rounds, iters_per_round=iters)
+    assert float((Rk - Rt).abs().max()) <= 1e-5
+    assert float((tk - tt).abs().max()) <= 1e-5
+    _, _, chi2, _ = pose_opt._residuals_jacobians(Rt, tt, o, cameras.PINHOLE, cam, POSE_BF)
+    th = torch.where(o.is_stereo, 7.815, 5.991)
+    away = (chi2 - th).abs() > 0.01 * th
+    assert torch.equal(inl_k[away], inl_t[away])
+    assert abs(int(n_k) - int(n_t)) <= int((~away).sum())
+
+
+@pytest.mark.cuda
+def test_pose_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """Wrong widths, dtypes or devices raise before any pointer is passed."""
+    from orbslam3lib_tpu_torch.ops import cuda_pose
+    from torch_parity import POSE_BF
+    o, R0, t0, cam = _pose_inputs(64, 1, cuda_device)
+    before = cuda_pose.eval_launches
+    bad = [(o._replace(uv=o.uv[:, :1].contiguous()), R0, cam),
+           (o._replace(p_world=o.p_world[:32]), R0, cam),
+           (o._replace(is_stereo=o.is_stereo.float()), R0, cam),
+           (o, R0.double(), cam),
+           (o, R0, cam.cpu()),
+           (o._replace(u_right=o.u_right.cpu()), R0, cam)]
+    for obs, R, c in bad:
+        with pytest.raises(ValueError):
+            cuda_pose.pose_eval(R, t0, obs, c, POSE_BF)
+    assert cuda_pose.eval_launches == before
+    r, J, chi2, behind = cuda_pose.pose_eval(R0, t0, o, cam, POSE_BF)
+    ones = torch.ones(64, device=cuda_device)
+    with pytest.raises(ValueError):
+        cuda_pose.pose_step(R0, t0, r, J[:, :2], chi2, behind, o.inv_sigma2, ones, ones,
+                            ones, 1e-3)

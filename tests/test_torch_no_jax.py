@@ -22,7 +22,7 @@ def _port_modules():
 
 def test_port_module_list_covers_the_slice():
     names = set(_port_modules())
-    for mod in ("ops.cuda_fast", "ops.cuda_matcher", "ops.extractor",
+    for mod in ("ops.cuda_fast", "ops.cuda_matcher", "ops.cuda_pose", "ops.extractor",
                 "tracking.tracker", "tracking.reloc", "models.map_state",
                 "io.synthetic", "evaluation", "config", "device",
                 "mapping.local_ba", "mapping.local_mapping", "mapping.loop_closing",

@@ -177,6 +177,22 @@ def test_search_and_local_ba_carry_their_frame_ids(stereo_run):
     assert sorted(r["frame"] for r in steps) == sorted(kf_frames)
 
 
+def test_search_spans_count_the_pose_evaluations(stereo_run):
+    """Each search runs two pose solves of rounds x (iterations + 1)
+    evaluations, on the CPU all by the torch ops; the stats count every
+    solve of the frames, these and any fallback's or relocalisation's."""
+    recs, stats = stereo_run["recs"], stereo_run["stats"]
+    tc = small_cfg(RIG).tracker
+    per_search = 2 * tc.pose_rounds * (tc.pose_iters + 1)
+    search = [r for r in recs if r["name"] == "track.search"]
+    assert search
+    for r in search:
+        assert r["counts"] == {"pose_evals_fused": 0, "pose_evals_torch": per_search}
+    assert stats["pose_evals_fused"] == 0
+    assert stats["ref_kf_fallbacks"] == stats["track_fail"] == 0
+    assert stats["pose_evals_torch"] == per_search * len(search)
+
+
 def test_inertial_run_records_the_solve_and_the_window(imu_run):
     recs, ready = imu_run["recs"], imu_run["ready"]
     assert ready[-1] and not ready[0]

@@ -537,3 +537,48 @@ def vi_window(C: int = 6, seed: int = 17, F: int = 128, n_pts: int = 256, gap: f
         pres.append(timu.integrate(timu.empty_preintegrated(), g, a, d, 2.4e-3, 2.8e-2,
                                    1.9e-5, 3e-3))
     return arr, timu.Preintegrated.stack(pres)
+
+
+# a EuRoC stereo rig rectified to pinhole: fx, fy, cx, cy
+POSE_CAM = np.array([435.2, 435.2, 367.2, 252.2], np.float32)
+POSE_BF = 435.2 * 0.11
+
+
+def pose_problem(n: int, seed: int = 0):
+    """One frame's motion-only pose solve in numpy: `n` observation rows of
+    points 1-20 m in front of the true camera, matched with 0.5 px of noise,
+    a third of them stereo, and among them rows the solver has to survive:
+    10% outliers (20-60 px off), 5% invalid, 3% behind the camera, and rows
+    at z exactly 0, within 1e-9 and within 1e-6 of it. Returns (fields of
+    a `PoseObs`, the true (R, t), a start perturbed by ~0.02 rad and 5 cm),
+    float32."""
+    from orbslam3lib_tpu_torch.utils import lie as tl
+    import torch
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy = (float(v) for v in POSE_CAM)
+    w_true = rng.normal(size=6) * np.array([0.3, 0.3, 0.3, 0.1, 0.1, 0.1])
+    R, t = (x.numpy().astype(np.float32) for x in tl.se3_exp(torch.tensor(w_true)))
+    z = rng.uniform(1.0, 20.0, n)
+    u = rng.uniform(0.0, 2 * cx, n)
+    v = rng.uniform(0.0, 2 * cy, n)
+    kind = rng.random(n)
+    behind = (kind > 0.92) & (kind <= 0.95)
+    z[behind] = -rng.uniform(0.01, 3.0, behind.sum())
+    z[:3] = (0.0, 5e-10, -7e-7)                    # z = 0, |z| < 1e-9, |z| < 1e-6
+    p_c = np.stack([(u - cx) / fx * np.abs(z), (v - cy) / fy * np.abs(z), z], -1)
+    p_w = (p_c - t) @ R                            # R^T (p_c - t)
+    zs = np.where(np.abs(z) < 1e-6, 1.0, z)
+    uv = np.stack([u, v], -1) + rng.normal(0.0, 0.5, (n, 2))
+    out = kind < 0.10
+    uv[out] += rng.choice([-1.0, 1.0], (out.sum(), 2)) * rng.uniform(20.0, 60.0, (out.sum(), 2))
+    is_stereo = (rng.random(n) < 0.35) & (z > 0.5)
+    u_right = np.where(is_stereo, u - POSE_BF / zs + rng.normal(0.0, 0.5, n), 0.0)
+    level = rng.integers(0, 8, n)
+    obs = dict(p_world=p_w.astype(np.float32), uv=uv.astype(np.float32),
+               inv_sigma2=(1.0 / 1.2 ** (2 * level)).astype(np.float32),
+               u_right=u_right.astype(np.float32), is_stereo=is_stereo,
+               valid=(kind < 0.95) | (kind > 0.97))
+    dR, dt = tl.se3_exp(torch.tensor(rng.normal(size=6) * np.array([0.03] * 3 + [0.012] * 3),
+                                     dtype=torch.float32))
+    R0, t0 = tl.se3_compose(dR, dt, torch.from_numpy(R), torch.from_numpy(t))
+    return obs, (R, t), (R0.numpy(), t0.numpy())
