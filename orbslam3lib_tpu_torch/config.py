@@ -3,7 +3,8 @@
 A field-for-field copy of `orbslam3lib_tpu/config.py`: that module cannot be
 imported here, because importing anything under `orbslam3lib_tpu` first runs
 its package `__init__`, which imports JAX. `tests/test_torch_config.py` holds
-the two dataclass trees equal (field names and defaults).
+the two dataclass trees equal (field names and defaults), but for the
+port's own field `MappingConfig.mapper_thread`.
 
 Replaces the reference's YAML `Settings` class (Settings.cc:36-177: versioned
 typed reader with camera1/camera2/Tlr/IMU/ORB/viewer sections) with one
@@ -157,6 +158,10 @@ class MappingConfig:
     # is folded back in with spanning-tree propagation for keyframes created
     # while it ran (RunGlobalBundleAdjustment tail, LoopClosing.cc:1240+)
     async_gba: bool = False
+    # LocalMapping and LoopClosing on a thread of their own, the tracker
+    # handing each keyframe over (System.cc:169-191): what `System` starts
+    # unless its `background_mapping` says otherwise (the port's own field)
+    mapper_thread: bool = False
 
 
 @dataclass

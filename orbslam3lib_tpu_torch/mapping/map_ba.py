@@ -3,8 +3,11 @@ around `local_ba.bundle_adjust` (port of
 `orbslam3lib_tpu/mapping/map_ba.py`), the chunked global BA, its
 landmark-sharded form (`global_bundle_adjust_dist`, over
 `parallel/dist_ba.py`), the route between them
-(`global_bundle_adjust_auto`) and the merge of an asynchronous global BA
-into a map that moved on (`merge_gba_result`).
+(`global_bundle_adjust_auto`), and the folds of a solve made on a snapshot
+into a map that moved on while it ran: an asynchronous global BA's
+(`merge_gba_result`) and a local BA's solved outside the map lock
+(`fold_window_result`). Both take a landmark slot for the one they solved
+by the same rule (`same_landmarks`).
 """
 from __future__ import annotations
 
@@ -27,12 +30,12 @@ def inv_sigma2(level: torch.Tensor, n_levels: int = 8) -> torch.Tensor:
     return 1.0 / (s * s)
 
 
-def _gather_window_problem(m: ms.MapState, window_ids, fixed_mask, bf: float,
-                           n_ba_points: int):
-    """The fixed-shape BA problem over a keyframe window. Returns (prob, ids,
-    sel_ids, cam_ok, pt_ok); the last four drive the scatter."""
-    C = window_ids.shape[0]
-    F = m.n_feat
+def _window_landmarks(m: ms.MapState, window_ids, n_ba_points: int):
+    """The keyframes and landmarks a BA over a keyframe window of `m` solves:
+    (ids, cam_ok, flat, sel_ids, pt_ok): the window's rows (clamped) and
+    which are live keyframes, the landmark id of each of their features
+    (-1 for none), and the n_ba_points landmark slots taken with which of
+    them hold a live observed landmark."""
     P = m.max_mp
     dev = window_ids.device
     ids = torch.clamp(window_ids, 0, m.max_kf - 1).long()
@@ -47,7 +50,18 @@ def _gather_window_problem(m: ms.MapState, window_ids, fixed_mask, bf: float,
         reduce="amax")
     flag = flag * m.mp_valid.to(torch.float32)
     sel_flag, sel_ids = topk_stable(flag, n_ba_points)
-    pt_ok = sel_flag > 0
+    return ids, cam_ok, flat, sel_ids, sel_flag > 0
+
+
+def _gather_window_problem(m: ms.MapState, window_ids, fixed_mask, bf: float,
+                           n_ba_points: int):
+    """The fixed-shape BA problem over a keyframe window. Returns (prob, ids,
+    sel_ids, cam_ok, pt_ok); the last four drive the scatter."""
+    C = window_ids.shape[0]
+    F = m.n_feat
+    P = m.max_mp
+    dev = window_ids.device
+    ids, cam_ok, flat, sel_ids, pt_ok = _window_landmarks(m, window_ids, n_ba_points)
     inv = torch.full((P,), -1, dtype=torch.int64, device=dev)
     inv[sel_ids] = torch.arange(n_ba_points, device=dev)
 
@@ -102,6 +116,40 @@ def map_window_ba(m: ms.MapState, window_ids, fixed_mask, cam_params, bf: float,
                                             bf=bf, n_iters=n_iters)
     return _scatter_window_result(m, cam_R, cam_t, points, ids, sel_ids,
                                   cam_ok, pt_ok, fixed_mask)
+
+
+def same_landmarks(m_now: ms.MapState, mp_valid0, mp_first_kf0) -> torch.Tensor:
+    """(P,) bool: the landmark slots of `m_now` that hold the landmark they
+    held in a snapshot of the same map (its `mp_valid0`, `mp_first_kf0`):
+    live then and now, with the same first keyframe. Slots are recycled,
+    lowest free first, so a slot's index alone does not name a landmark."""
+    return mp_valid0 & m_now.mp_valid & (m_now.mp_first_kf == mp_first_kf0)
+
+
+def fold_window_result(m_now: ms.MapState, solved: ms.MapState, window_ids, fixed_mask,
+                       n_ba_points: int) -> ms.MapState:
+    """Fold a window BA solved on a snapshot into the map that moved on
+    while it ran, in place: the write-back of LocalBundleAdjustment
+    (Optimizer.cc:1124), which solves without Map::mMutexMapUpdate and takes
+    it only to write the result. `solved` is the snapshot after
+    `map_window_ba(snapshot, window_ids, fixed_mask, ..., n_ba_points, ...)`
+    (which changes only its poses and positions, so it still holds the
+    snapshot's validity and first keyframes).
+
+    A free window keyframe that is still valid takes its optimised pose:
+    keyframe ids are append-only within a map epoch, so a valid slot holds
+    the keyframe it held. An optimised landmark whose slot still holds it
+    (`same_landmarks`) takes its optimised position. Keyframes made since
+    and landmarks spawned, culled or recycled since are left as they are,
+    as the reference's write-back skips bad points and moves no keyframe
+    it did not optimise. A map whose epoch changed since the snapshot (a
+    compaction renumbers its slots) is the caller's to refuse."""
+    ids, cam_ok, _, sel_ids, pt_ok = _window_landmarks(solved, window_ids, n_ba_points)
+    live_kf = cam_ok & m_now.kf_valid[ids]
+    live_pt = pt_ok & same_landmarks(m_now, solved.mp_valid, solved.mp_first_kf)[sel_ids]
+    return _scatter_window_result(m_now, solved.kf_R[ids], solved.kf_t[ids],
+                                  solved.mp_pos[sel_ids], ids, sel_ids, live_kf, live_pt,
+                                  fixed_mask)
 
 
 def global_bundle_adjust(m: ms.MapState, cam_params, bf: float,
@@ -243,7 +291,7 @@ def merge_gba_result(m_now: ms.MapState, gba_R, gba_t, gba_mp_pos, n_kf0: int,
         R_new[k] = torch.where(do, Rc, R_new[k])
         t_new[k] = torch.where(do, tc, t_new[k])
 
-    in_gba_mp = mp_valid0 & m_now.mp_valid & (m_now.mp_first_kf == mp_first_kf0)
+    in_gba_mp = same_landmarks(m_now, mp_valid0, mp_first_kf0)
     ref = torch.clamp(m_now.mp_first_kf, 0, K - 1).long()
     has_ref = (m_now.mp_first_kf >= 0) & m_now.mp_valid
     p_cam = lie.se3_apply(m_now.kf_R[ref], m_now.kf_t[ref], m_now.mp_pos)

@@ -13,11 +13,13 @@ with `cfg.stereo.rectify` and two-camera Kannala-Brandt stereo with
 `cfg.stereo.fisheye`. With `use_pipeline` a bounded producer/consumer
 pipeline runs the tracker on a second host thread: a queue of depth 2 that
 drops a frame when it is full (System.cc:356-438). With
-`background_mapping` the tracker's mapper thread runs each keyframe's
-LocalMapping and LoopClosing (and `cfg.mapping.async_gba` the global BA on
-a thread of its own); `shutdown` waits for their work and joins every
-thread. The tracker changes `cfg` on a raw rig (see `Tracker`), so each
-System takes its own `SlamConfig`.
+`background_mapping` (by default `cfg.mapping.mapper_thread`, so that a
+configuration names the deployment's threads) the tracker's mapper thread
+runs each keyframe's LocalMapping and LoopClosing (and
+`cfg.mapping.async_gba` the global BA on a thread of its own), as the
+reference's System starts them (System.cc:169-191); `shutdown` waits for
+their work and joins every thread. The tracker changes `cfg` on a raw rig
+(see `Tracker`), so each System takes its own `SlamConfig`.
 
 Monocular (`System(cfg, SENSOR_MONOCULAR).track_monocular(img, ts)`):
 two-view initialisation, then the tracker without depth; a loop is closed
@@ -76,13 +78,16 @@ class System:
 
     def __init__(self, cfg: SlamConfig, sensor: str = SENSOR_STEREO, *,
                  use_pipeline: bool = False, enable_loop_closing: bool = True,
-                 enable_timing: bool = False, background_mapping: bool = False,
+                 enable_timing: bool = False,
+                 background_mapping: Optional[bool] = None,
                  pose_callback: Optional[Callable] = None,
                  device: torch.device | str = "cuda"):
         if sensor not in _SENSORS:
             raise ValueError(f"unknown sensor {sensor!r}")
         self.sensor = sensor
         base, cfg.use_imu = _SENSORS[sensor]
+        if background_mapping is None:
+            background_mapping = cfg.mapping.mapper_thread
         self.tracker = Tracker(cfg, base, device=device,
                                enable_loop_closing=enable_loop_closing,
                                enable_timing=enable_timing,

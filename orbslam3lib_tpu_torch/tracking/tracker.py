@@ -46,13 +46,24 @@ returns to the synchronous path.
 
 Threads (reference :1747-1857): with `async_mapping` one mapper thread
 takes keyframe ids from a queue and runs `_mapping_pipeline` under
-`_map_lock` (the reference's Map::mMutexMapUpdate); with
-`cfg.mapping.async_gba` a loop correction starts the global BA on a thread
-of its own, on a snapshot of the map, merged back by `merge_gba_result`.
-Every thread that touches the card runs on the tracker's card and on its
-one stream, so the card runs work in the order the threads enqueue it. The
+`_map_lock` (the reference's Map::mMutexMapUpdate), but for the local BA's
+solve: as the reference's LocalBundleAdjustment (Optimizer.cc:1124) it
+solves a snapshot of the map with the lock released and folds the result
+into the live map under the lock again (`map_ba.fold_window_result`),
+dropping it (`stats["local_ba_dropped"]`) when the frame thread renumbered
+or moved the whole map meanwhile; after a reset or a new map the
+keyframe's further steps (probe, merge, inertial back end) are skipped. With `cfg.mapping.async_gba` a loop
+correction starts the global BA on a thread of its own, on a snapshot of
+the map, merged back by `merge_gba_result` between two local BAs, as the
+reference's GBA waits for LocalMapping to stop before it merges. Every
+thread that touches the card runs on the tracker's card and on its one
+stream, so the card runs work in the order the threads enqueue it. The
 mapper thread survives an exception and counts it in
-`stats["mapper_errors"]` (the GBA thread in `stats["gba_errors"]`).
+`stats["mapper_errors"]` (the GBA thread in `stats["gba_errors"]`). With
+timing on, the frame's wait for `_map_lock` is the span `track.lock_wait`
+and each stretch in which the mapper thread holds it the interval
+`mapping.locked`; `stats["mapper_queue_max"]` keeps the most keyframes
+handed to the mapper and not yet mapped.
 
 Two faults of the reference's asynchronous code are not carried over:
 its pipelined keyframe (`_create_keyframe_from_record`, :1259-1261) aborts
@@ -152,8 +163,8 @@ from ..mapping import local_mapping as lm_ops
 from ..mapping.local_mapping import _last_write
 from ..mapping.loop_closing import LoopCloser, MapMerger, mapper_step_fused
 from ..mapping.map_ba import inv_sigma2 as _inv_sigma2
-from ..mapping.map_ba import (global_bundle_adjust_auto, map_window_ba as _local_ba,
-                              merge_gba_result)
+from ..mapping.map_ba import (fold_window_result, global_bundle_adjust_auto,
+                              map_window_ba as _local_ba, merge_gba_result)
 from ..mapping.twoview import reconstruct_two_views
 from ..mapping.vi_ba import apply_vi_window, local_inertial_ba
 from ..models import map_state as ms
@@ -642,7 +653,8 @@ class Tracker:
                       "n_mapping_steps": 0, "n_local_ba": 0, "n_compactions": 0,
                       "mapper_errors": 0, "n_gba_started": 0, "n_gba_merged": 0,
                       "n_gba_aborted": 0, "gba_errors": 0, "frames_skipped": 0,
-                      "pose_evals_fused": 0, "pose_evals_torch": 0}
+                      "pose_evals_fused": 0, "pose_evals_torch": 0,
+                      "local_ba_dropped": 0, "mapper_queue_max": 0}
         self.errors: List[str] = []   # tracebacks of the threads' caught failures
         self._th_far = (float(cfg.tracker.th_far_points)
                         if cfg.tracker.th_far_points > 0 else None)
@@ -704,9 +716,17 @@ class Tracker:
         self._probe_unfetched: List = []  # (kid, probe pack on the device)
         # the mapper thread and the GBA thread (reference :578-609). Queue
         # items are (map epoch, kid): a reset or a compaction starts a new
-        # epoch, and the mapper skips ids of an older map
+        # epoch, and the mapper skips ids of an older map. `_map_moves`
+        # counts the moves of the whole map that the frame thread can make
+        # while the mapper solves a local BA off the lock (a loop the
+        # pipelined consumer closes, the IMU initialisation);
+        # `_local_ba_solving` holds a GBA's merge back meanwhile; `_held` is
+        # the mapper's open `mapping.locked` interval, of frame `_held_frame`
         self._map_lock = threading.RLock()
         self._map_epoch = 0
+        self._map_moves = 0
+        self._local_ba_solving = False
+        self._held = self._held_frame = None
         self._map_queue: Optional[queue.Queue] = None
         self._mapper_thread: Optional[threading.Thread] = None
         self._mapper_stop = False
@@ -923,7 +943,9 @@ class Tracker:
 
         # the map-touching section serialises against the mapper thread (the
         # reference's per-frame Map::mMutexMapUpdate, Tracking.cc:1939)
-        with self._map_lock:
+        with self.timer.span("track.lock_wait"):
+            self._map_lock.acquire()
+        try:
             if self.state == NOT_INITIALIZED:
                 if self.sensor == "mono":
                     out = self._initialize_mono(feats, ts, n_feat)
@@ -940,6 +962,8 @@ class Tracker:
             if self.pose is not None:
                 R, t = self.pose
                 self.trajectory.append((ts, to_host(R), to_host(t)))
+        finally:
+            self._map_lock.release()
         return out
 
     def _frame_images(self, img) -> torch.Tensor:
@@ -1575,6 +1599,8 @@ class Tracker:
         if lc is not None and not lc.async_gba:
             lc.abort_gba = True
         q.put((self._map_epoch, kid))
+        self.stats["mapper_queue_max"] = max(self.stats["mapper_queue_max"],
+                                             q.unfinished_tasks)
 
     def _probe_mp_pressure(self):
         """Landmark-slot pressure without waiting for the card (reference
@@ -1704,6 +1730,7 @@ class Tracker:
 
     def _mapping_steps(self, kid: int, lagged_loops: bool):
         cfg = self.cfg
+        epoch = self._map_epoch
         pr = self.place_rec
         voc = pr.voc
         lc = self.loop_closer
@@ -1725,6 +1752,10 @@ class Tracker:
         q = self._map_queue
         if q is None or q.unfinished_tasks <= 1:
             self._run_local_ba(kid)
+            if self._map_epoch != epoch:
+                # the frame thread reset or replaced the map while the
+                # mapper's local BA solved off the lock: `kid` is gone
+                return
         if want_probe:
             if lagged_loops:
                 self._probe_unfetched.append((kid, probe))
@@ -1812,6 +1843,7 @@ class Tracker:
                 sp.set(closed=int(lc.n_loops > n_before))
             if lc.n_loops > n_before:
                 self.stats["n_loops"] += 1
+                self._map_moves += 1
                 if kid in self._kf_wall:
                     self.stats["loop_latency_ms"] = round(
                         (time.perf_counter() - self._kf_wall[kid]) * 1e3, 1)
@@ -1830,8 +1862,10 @@ class Tracker:
         """Local BA from the third keyframe on (reference :2197-2225), over
         the covisibility window with its oldest members fixed, or with
         `cfg.mapping.covis_ba_window` off over the fixed window
-        (`fixed_ba_window`); off the mapper thread the tracker's pose becomes
-        the keyframe's optimised one."""
+        (`fixed_ba_window`). Inline it solves the map in place and the
+        tracker's pose becomes the keyframe's optimised one; on the mapper
+        thread it solves off the lock (`_local_ba_off_lock`). `n_local_ba`
+        counts the solves written into the map."""
         cfg = self.cfg
         if self._n_kf_host < 3:
             return
@@ -1843,13 +1877,41 @@ class Tracker:
             else:
                 ids, fixed = (to_device(a, self.device) for a in fixed_ba_window(
                     self._n_kf_host, cfg.ba.window_size, cfg.ba.n_fixed))
-            self.map = _local_ba(self.map, ids, fixed, self.cam_params, float(cfg.bf),
-                                 cam_model=cfg.camera.model_id,
-                                 n_ba_points=cfg.ba.max_points, n_iters=cfg.ba.n_iters)
+            args = (ids, fixed, self.cam_params, float(cfg.bf))
+            kw = dict(cam_model=cfg.camera.model_id, n_ba_points=cfg.ba.max_points,
+                      n_iters=cfg.ba.n_iters)
+            if self._in_mapper_thread:
+                if not self._local_ba_off_lock(args, kw):
+                    return
+            else:
+                self.map = _local_ba(self.map, *args, **kw)
         self.stats["n_local_ba"] += 1
         if not self._in_mapper_thread:
             # copies: the map's rows change in place at the next keyframe
             self.pose = (self.map.kf_R[kf_id].clone(), self.map.kf_t[kf_id].clone())
+
+    def _local_ba_off_lock(self, args: tuple, kw: dict) -> bool:
+        """The mapper thread's local BA (`_local_ba(map, *args, **kw)`), with
+        `_map_lock` held on entry and exit: solved on a snapshot with the
+        lock released (`_mapper_released`), then folded into the live map
+        (`fold_window_result`), or dropped and counted in
+        `stats["local_ba_dropped"]` when the map's epoch changed (a
+        compaction, reset, new map or load) or the frame thread moved the
+        whole map (`_map_moves`) since the snapshot. Returns whether the
+        result was folded."""
+        snap = ms.clone_map(self.map)
+        at = (self._map_epoch, self._map_moves)
+        self._local_ba_solving = True
+        try:
+            with self._mapper_released():
+                solved = _local_ba(snap, *args, **kw)
+        finally:
+            self._local_ba_solving = False
+        if (self._map_epoch, self._map_moves) != at:
+            self.stats["local_ba_dropped"] += 1
+            return False
+        self.map = fold_window_result(self.map, solved, args[0], args[1], kw["n_ba_points"])
+        return True
 
     # -- the inertial back end (reference :2019-2316) ---------------------------
     def _window_pres(self, sel, C: int):
@@ -2075,6 +2137,7 @@ class Tracker:
             return
         Rgw = R_wg.T
         self.map = transform_map(self.map, Rgw, torch.zeros(3, device=self.device), s_f)
+        self._map_moves += 1
         self.imu_bias = (bg, ba)
         self.frame_state_v = Rgw @ v[-1]
         self.imu_ready = True
@@ -2280,9 +2343,10 @@ class Tracker:
 
     def _mapper_loop(self):
         """LocalMapping / LoopClosing on their own thread: one keyframe id at
-        a time from the queue, under `_map_lock`. A detached queue (None)
-        leaves the mapping inline; an exception is counted and the thread
-        goes on (reference :1770-1771)."""
+        a time from the queue, under `_map_lock` (but for the local BA's
+        solve). A detached queue (None) leaves the mapping inline; an
+        exception is counted and the thread goes on (reference
+        :1770-1771)."""
         with on_device(self.device):
             while not self._mapper_stop:
                 q = self._map_queue
@@ -2294,13 +2358,46 @@ class Tracker:
                 except queue.Empty:
                     continue
                 try:
-                    with self._map_lock:
+                    with self._mapper_holding(self._kf_frame.get(kid)):
                         if epoch == self._map_epoch:
                             self._mapping_pipeline(kid, lagged_loops=self.pipeline > 1)
                 except Exception:
                     self._record_error("mapper_errors", f"keyframe {kid}")
                 finally:
                     q.task_done()
+
+    @contextlib.contextmanager
+    def _mapper_holding(self, frame: Optional[int]):
+        """The mapper thread's hold of `_map_lock` for one keyframe, `frame`
+        the id of the frame that made it: each stretch it holds the lock is
+        an interval `mapping.locked` of that frame."""
+        self._held_frame = frame
+        self._take_map_lock()
+        try:
+            yield
+        finally:
+            self._drop_map_lock()
+
+    @contextlib.contextmanager
+    def _mapper_released(self):
+        """Inside `_mapper_holding`: the lock released for the body, then
+        taken again (a new `mapping.locked` interval). The mapper holds the
+        lock once, so releasing it frees it."""
+        self._drop_map_lock()
+        try:
+            yield
+        finally:
+            self._take_map_lock()
+
+    def _take_map_lock(self):
+        self._map_lock.acquire()
+        self._held = self.timer.interval("mapping.locked", frame=self._held_frame)
+        self._held.__enter__()
+
+    def _drop_map_lock(self):
+        self._held.__exit__(None, None, None)
+        self._held = None
+        self._map_lock.release()
 
     def wait_mapping_idle(self, timeout: float = 60.0):
         """Block until the mapper's queue is done; raises TimeoutError
@@ -2335,7 +2432,10 @@ class Tracker:
         newer loop supersedes it). It optimises a snapshot of the map taken
         now, in one-iteration chunks with its abort polled, and merges under
         a lock acquired by polling, so an abort can never deadlock against
-        it; `_after_merge` then moves the tracker's poses with the map.
+        it, and never while the mapper solves a local BA off the lock (the
+        reference's GBA stops LocalMapping before it merges, LoopClosing.cc
+        RunGlobalBundleAdjustment); `_after_merge` then moves the tracker's
+        poses with the map.
         `frame`: the id of the frame whose loop started it, for its span."""
         lc = self.loop_closer
         if lc is None or not lc.async_gba or lc.gba_iters <= 0:
@@ -2355,9 +2455,11 @@ class Tracker:
                         should_abort=abort.is_set)
                     merged = False
                     while not merged and not abort.is_set():
-                        if self._map_lock.acquire(timeout=0.02):
+                        if self._local_ba_solving:
+                            abort.wait(0.005)   # merge between two local BAs
+                        elif self._map_lock.acquire(timeout=0.02):
                             try:
-                                if not abort.is_set():
+                                if not abort.is_set() and not self._local_ba_solving:
                                     k = self.last_kf_id
                                     before = (self.map.kf_R[k], self.map.kf_t[k])
                                     self.map = merge_gba_result(

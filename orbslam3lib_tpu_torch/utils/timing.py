@@ -27,6 +27,14 @@ the stream's timeline, and so counts the host's stalls and the device work
 queued inside the span, where the host clock without a sync counts only the
 enqueue.
 
+Intervals. `timer.interval(name, frame=None)` marks a stretch that need not
+nest with the thread's spans, such as a lock held from one layer's work
+into another's: a span on the host clock alone (no device events, no
+profiler annotation) that is never pushed on the thread's stack, so it has
+no parent and is no span's parent, and may open and close at any point of
+the thread's spans (it is entered and left by hand where a `with` cannot
+hold it). Its frame is the one given, else the innermost open span's.
+
 The spans are kept in `samples[SPANS]`, in the order they opened, so that
 clearing `samples` starts the stages and the spans anew. The recorder may be
 used from several threads (the mapper's, the global BA's): each keeps its
@@ -80,14 +88,14 @@ class Span:
     """One span of an enabled `StageTimer` (see the module's docstring),
     its own context manager."""
     __slots__ = ("name", "frame", "parent", "counts", "t0_ns", "t1_ns",
-                 "_timer", "_stage", "_events", "_annotation")
+                 "_timer", "_stage", "_nested", "_events", "_annotation")
 
     def __init__(self, timer: "StageTimer", name: str, frame: Optional[int],
-                 counts: dict, stage: bool):
+                 counts: dict, stage: bool, nested: bool = True):
         self.name, self.frame, self.counts = name, frame, counts
         self.parent: Optional[Span] = None
         self.t0_ns = self.t1_ns = None
-        self._timer, self._stage = timer, stage
+        self._timer, self._stage, self._nested = timer, stage, nested
         self._events = self._annotation = None
 
     def set(self, **counts):
@@ -97,30 +105,33 @@ class Span:
     def __enter__(self):
         tm = self._timer
         stack = tm._stack()
-        self.parent = stack[-1] if stack else None
+        top = stack[-1] if stack else None
         if self.frame is None:
-            self.frame = self.parent.frame if self.parent is not None else -1
-        stack.append(self)
+            self.frame = top.frame if top is not None else -1
         with tm._lock:
             tm.samples[SPANS].append(self)
-        self._annotation = torch.autograd.profiler.record_function(
-            ANNOTATION_PREFIX + self.name)
-        self._annotation.__enter__()
-        if tm.cuda and not torch.cuda.is_current_stream_capturing():
-            self._events = (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True))
-            self._events[0].record()
+        if self._nested:
+            self.parent = top
+            stack.append(self)
+            self._annotation = torch.autograd.profiler.record_function(
+                ANNOTATION_PREFIX + self.name)
+            self._annotation.__enter__()
+            if tm.cuda and not torch.cuda.is_current_stream_capturing():
+                self._events = (torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True))
+                self._events[0].record()
         self.t0_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         self.t1_ns = time.perf_counter_ns()
-        if self._events is not None:
-            self._events[1].record()
-        self._annotation.__exit__(*exc)
-        self._annotation = None
         tm = self._timer
-        tm._stack().pop()
+        if self._nested:
+            if self._events is not None:
+                self._events[1].record()
+            self._annotation.__exit__(*exc)
+            self._annotation = None
+            tm._stack().pop()
         if self._stage:
             with tm._lock:
                 tm.samples[self.name].append((self.t1_ns - self.t0_ns) * 1e-9)
@@ -183,6 +194,11 @@ class StageTimer:
         if not self.enabled:
             return NO_SPAN
         return Span(self, name, None, {}, stage=True)
+
+    def interval(self, name: str, frame: Optional[int] = None):
+        if not self.enabled:
+            return NO_SPAN
+        return Span(self, name, frame, {}, stage=False, nested=False)
 
     def export(self) -> List[dict]:
         """`export_spans` of this timer's log."""

@@ -17,17 +17,31 @@ from orbslam3lib_tpu_torch.io import synthetic as tsyn  # noqa: E402
 from orbslam3lib_tpu_torch.ops.pattern import BIT_PATTERN_31 as T_PATTERN  # noqa: E402
 
 
-def _tree(obj):
-    """(class name, [(field, default or subtree)]) of a config dataclass."""
+# the port's own fields, with their defaults: (class name, field) -> default
+PORT_ONLY = {("MappingConfig", "mapper_thread"): False}
+
+
+def _tree(obj, skip=()):
+    """(class name, [(field, default or subtree)]) of a config dataclass,
+    without the fields `skip` names as (class name, field)."""
     out = []
     for f in dataclasses.fields(obj):
+        if (type(obj).__name__, f.name) in skip:
+            continue
         v = getattr(obj, f.name)
-        out.append((f.name, _tree(v) if dataclasses.is_dataclass(v) else v))
+        out.append((f.name, _tree(v, skip) if dataclasses.is_dataclass(v) else v))
     return type(obj).__name__, out
 
 
 def test_config_tree_equal():
-    assert _tree(tcfg.SlamConfig()) == _tree(jcfg.SlamConfig())
+    """The trees are equal but for the port's own fields, which keep their
+    defaults."""
+    t = tcfg.SlamConfig()
+    assert _tree(t, skip=PORT_ONLY) == _tree(jcfg.SlamConfig())
+    for (cls, name), default in PORT_ONLY.items():
+        group = next(getattr(t, f.name) for f in dataclasses.fields(t)
+                     if type(getattr(t, f.name)).__name__ == cls)
+        assert getattr(group, name) == default
 
 
 @pytest.mark.parametrize("model,dist", [("pinhole", (0.0,) * 5),

@@ -6,8 +6,9 @@ card against the same on the CPU; a chunk's dispatch without a host sync;
 the mapper and GBA threads on the card; the cross-map match, the map merge
 and an atlas round trip on the card; kernel 1 at batch 1 and `System` with
 the monocular and the RGB-D sensor on the card against the CPU; the
-inertial solvers (and the per-frame solve replayed from a CUDA graph), the
-windowed VI-BA, `System("imu_mono")` (through its guard's abort on the
+threaded `System`'s local BA write-backs against the benchmark's plain
+write-back; the inertial solvers (and the per-frame solve replayed from a
+CUDA graph), the windowed VI-BA, `System("imu_mono")` (through its guard's abort on the
 corridor, and through a successful IMU initialisation on phase J's excited
 corridor) and the inertial map merge on the card against the CPU; the
 pose solve's two kernels against its torch path on the card (marker
@@ -538,6 +539,64 @@ def test_mapper_and_gba_threads_on_card(cuda_device):
     assert not mapper.is_alive() and not gba_thread.is_alive()
     assert tr.stats["n_gba_merged"] == 1 and tr.stats["mapper_errors"] == 0
     assert tr.map.kf_R.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_threaded_system_write_backs_on_card(cuda_device, monkeypatch):
+    """The threaded deployment (`cfg.mapping.mapper_thread`, `async_gba`)
+    through `System` on chip_smoke's orbit (640x400, 400 frames, its first
+    loop near frame 343): every local BA the mapper solved off the map lock
+    was written back as `slambench/reference/writeback.py` writes it, from
+    the same live map and snapshot, bit for bit; nothing was dropped; the
+    loop closed and its global BA ran on its thread; no mapper or GBA error;
+    every thread joined."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from orbslam3lib_tpu_torch import system as tsys
+    from orbslam3lib_tpu_torch.io.synthetic import (StereoRig, orbit_tracking_config,
+                                                    render_orbit_sequence)
+    from orbslam3lib_tpu_torch.tracking import tracker as ttr
+    from slambench.reference import writeback
+    imgs, ts, rig = render_orbit_sequence(400, StereoRig())
+    cfg = orbit_tracking_config(rig)
+    cfg.mapping.mapper_thread = cfg.mapping.async_gba = True
+    folds = []
+    real = ttr.fold_window_result
+
+    def host(m, names):
+        return {k: getattr(m, k).to("cpu", copy=True) for k in names}
+
+    def fold(m_now, solved, window_ids, fixed_mask, n_ba_points):
+        live, snap = host(m_now, writeback.LIVE_FIELDS), host(solved, writeback.SNAPSHOT_FIELDS)
+        out = real(m_now, solved, window_ids, fixed_mask, n_ba_points)
+        folds.append((live, snap, window_ids.cpu(), fixed_mask.cpu(), n_ba_points,
+                      host(out, writeback.LIVE_FIELDS)))
+        return out
+
+    monkeypatch.setattr(ttr, "fold_window_result", fold)
+    s = tsys.System(cfg, "stereo", device=cuda_device)
+    mapper = s.tracker._mapper_thread
+    assert mapper is not None and mapper.is_alive()
+    threads = [mapper]
+    for img, stamp in zip(imgs, ts):
+        s.track_stereo(img, float(stamp))
+        if s.tracker._gba_thread is not None and s.tracker._gba_thread not in threads:
+            threads.append(s.tracker._gba_thread)
+    s.shutdown()
+    st, tr = s.get_stats(), s.tracker
+    for t in threads:
+        t.join(10.0)
+        assert not t.is_alive()
+    assert tr._mapper_thread is None and tr._gba_thread is None
+    assert st["mapper_errors"] == st["gba_errors"] == 0 and not tr.errors
+    assert st["n_loops"] >= 1 and st["n_gba_started"] >= 1
+    assert st["n_gba_merged"] + st["n_gba_aborted"] == st["n_gba_started"]
+    assert st["local_ba_dropped"] == 0 and len(folds) == st["n_local_ba"] >= 10
+    for live, snap, ids, fixed, n, got in folds:
+        want = writeback.writeback(live, snap, ids, fixed, n)
+        for k in writeback.LIVE_FIELDS:
+            assert torch.equal(got[k], want[k]), k
 
 
 def _merge_atlas_on(dev):

@@ -6,7 +6,7 @@ stage samples keep one entry per frame, and the tracking and back-end spans
 carry the ids of the frames they serve; an inertial run records the frame's
 inertial solve and the VI window; under a CPU `torch.profiler` each span is
 an `orbslam.*` annotation inside its frame's. Also: threads keep stacks of
-their own. The runs are tests/test_torch_system.py's small configuration
+their own, and an interval stands outside its thread's stack. The runs are tests/test_torch_system.py's small configuration
 at 320x200, with a keyframe every other frame."""
 import sys
 import threading
@@ -257,3 +257,28 @@ def test_threads_keep_stacks_of_their_own():
     for r in inner:
         per_thread[r["frame"]].append(r["counts"]["j"])
     assert all(v == list(range(n_iter)) for v in per_thread.values())
+
+
+def test_intervals_stand_outside_the_stack():
+    """An interval opened inside one span and closed inside the next,
+    after its opener closed: no parent, parent of nothing, its frame the
+    opener's, host time only; the spans around it nest as before."""
+    t = StageTimer(enabled=True)
+    with t.span("a", frame=7):
+        held = t.interval("held")
+        held.__enter__()
+        with t.span("a.child"):
+            pass
+    with t.span("b", frame=8):
+        held.__exit__(None, None, None)
+        with t.span("b.child"):
+            pass
+    recs = {r["name"]: r for r in t.export()}
+    by_id = _by_id(list(recs.values()))
+    iv = recs["held"]
+    assert iv["parent"] is None and iv["frame"] == 7 and iv["device_s"] is None
+    assert recs["a"]["start_ns"] <= iv["start_ns"] <= recs["a"]["end_ns"]
+    assert recs["b"]["start_ns"] <= iv["end_ns"] <= recs["b"]["end_ns"]
+    assert by_id[recs["a.child"]["parent"]]["name"] == "a"
+    assert by_id[recs["b.child"]["parent"]]["name"] == "b"
+    assert t.interval("x") is not NO_SPAN and StageTimer().interval("x") is NO_SPAN
