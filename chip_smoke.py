@@ -30,7 +30,15 @@ Phases, each fatal on failure:
      POSE_STEP_TOL, and whole solves at the orbit's 2 x 2 and EuRoC's 4 x 10
      within POSE_SOLVE_TOL with one launch per evaluation and per step; each
      kernel timed at 512 and 1,200 rows as above, and a 4 x 10 solve's ATen
-     operations and host ms on both paths (`solve` in the pose_eval row);
+     operations and host ms on both paths (`solve` in the pose_eval row).
+     The VI window's two kernels (`ops/cuda_vi.py`) on
+     `torch_parity.vi_problem` windows of VI_SHAPES keyframes (EuRoC's 9,
+     VIBA's 24) at 1,200 slots: H and g against the float64 oracle
+     (`vi_ba._normal_equations_torch`) within VI_NE_TOL, whole windows
+     against the torch path within VI_WINDOW_TOL with one launch per
+     evaluation and per step, two runs bit-equal; each kernel timed at both
+     sizes, solve_ex on the assembled H beside the step (`dense_solve`) and
+     a window's ATen operations and host ms on both paths (`window`);
   3. slice: render the bench's orbit sequence (bench.py's world, trajectory,
      seed and 640x400 rig) with the port's numpy renderer and drive
      `Tracker.process_frame` over its first N_FRAMES frames (the orbit's
@@ -223,10 +231,13 @@ Phases, each fatal on failure:
   Phases 4-15 each reset the launch counters just before their frames and
   read them just after; each kernel must launch on each of phases 4-13,
   except the pose kernels on phase F, whose Kannala-Brandt camera keeps the
-  torch path and must launch none (counts in the kernels line,
-  `launches_by_path`; N and X check their own launches). In phase 3 every
-  pose evaluation is the kernel's (the tracker's `pose_evals_fused` equals
-  the launches, `pose_evals_torch` is 0). The sequences and the depth maps
+  torch path and must launch none, and the VI kernels, which launch on
+  phases I and J (every VI window evaluation the kernels': the tracker's
+  `vi_evals_fused` equals the launches, `vi_evals_torch` is 0) and on no
+  other phase (counts in the kernels line, `launches_by_path`; N and X
+  check their own launches). In phase 3 every pose evaluation is the
+  kernel's (the tracker's `pose_evals_fused` equals the launches,
+  `pose_evals_torch` is 0). The sequences and the depth maps
   render in six processes started before the card is used. Kernel 1 is
   also checked bit-exact and timed at batch 1 (one image's 8 levels, the
   mono and RGB-D frame: `batch1` in its row).
@@ -440,6 +451,14 @@ POSE_STEP_TOL, POSE_SOLVE_TOL = 1e-6, 1e-5
 # behind (89); the step reads r, J, chi2, behind, inv_sigma2, delta,
 # inlier, valid (105). Their operations (~100 f32 a row) bound far lower.
 POSE_EVAL_BYTES, POSE_STEP_BYTES = 118, 105
+# the VI window's kernels: EuRoC's window (8 + 1 keyframes) and VIBA's 24, at
+# EuRoC's 1,200 slots and stereo (bf of a 0.11 m baseline at fx 300); the
+# largest gap of H and g to the float64 oracle over their Cauchy-Schwarz
+# scales, and of a whole window (VI_ITERS) to the torch path: poses, t,
+# velocities, biases (test_torch_cuda's bounds)
+VI_SHAPES, VI_F, VI_BF, VI_ITERS = (9, 24), 1200, 33.0, 10
+VI_NE_TOL = 2e-5
+VI_WINDOW_TOL = (1e-4, 1e-4, 1e-3, 1e-4, 1e-4)
 N_TIMED = 200
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
 # memory bytes per second,
@@ -629,16 +648,17 @@ def time_knn(dev, gen):
 
 def reset_launches() -> None:
     """Zero every kernel's launch counter."""
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, cuda_pose
-    for mod in (cuda_fast, cuda_matcher, cuda_pose):
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, cuda_pose, cuda_vi
+    for mod in (cuda_fast, cuda_matcher, cuda_pose, cuda_vi):
         mod.reset_count()
 
 
 def launch_counts() -> dict:
     """Each kernel's launches since the last `reset_launches()`."""
-    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, cuda_pose
+    from orbslam3lib_tpu_torch.ops import cuda_fast, cuda_matcher, cuda_pose, cuda_vi
     return {"fast_scores_nms": cuda_fast.launches, "knn_match_fused": cuda_matcher.launches,
-            "pose_eval": cuda_pose.eval_launches, "pose_step": cuda_pose.step_launches}
+            "pose_eval": cuda_pose.eval_launches, "pose_step": cuda_pose.step_launches,
+            "vi_eval": cuda_vi.eval_launches, "vi_step": cuda_vi.step_launches}
 
 
 def pose_inputs(dev, n: int, seed: int):
@@ -773,22 +793,168 @@ def pose_solve_cost(dev, n: int = 1200, rounds: int = 4, iters: int = 10):
     return out
 
 
+def vi_inputs(dev, C: int):
+    """`torch_parity.vi_problem`'s window of C keyframes and VI_F slots on
+    the card: (map, local_inertial_ba's keywords, its vi_ba.Window)."""
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    from torch_parity import vi_problem
+    m, kw = vi_problem(C=C, F=VI_F, n_pts=2 * VI_F, bf=VI_BF, device=dev, no_imu=(3,))
+    return m, kw, vi_ba.window_problem(m, **kw)
+
+
+def vi_x(C: int, dev):
+    """A seeded x of poses ~0.02, velocities ~0.05, biases ~1e-3."""
+    rng = np.random.default_rng(C)
+    x = rng.normal(size=(C, 15)) * np.array([0.02] * 6 + [0.05] * 3 + [1e-3] * 6)
+    return torch.from_numpy(x.reshape(-1).astype(np.float32)).to(dev)
+
+
+@contextlib.contextmanager
+def torch_vi_path():
+    """Inside, the VI window takes its torch path on the card too."""
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    fused = vi_ba._fused
+    vi_ba._fused = lambda *a: False
+    try:
+        yield
+    finally:
+        vi_ba._fused = fused
+
+
+def check_vi(dev):
+    """The VI kernels on the card: H and g against `_normal_equations_torch`
+    in float64 on the same inputs (each entry over its Cauchy-Schwarz
+    scale), whole windows against the torch path (poses, velocities,
+    biases), two runs bit-equal, one launch per evaluation and per step.
+    Returns (normal equations gap, window gap)."""
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    from orbslam3lib_tpu_torch.ops import cuda_vi
+    from torch_parity import vi_window_as
+    ne_gap = win_gap = 0.0
+    for C in VI_SHAPES:
+        m, kw, w = vi_inputs(dev, C)
+        x = vi_x(C, dev)
+        H, g = cuda_vi.normal_equations(cuda_vi.pack(w), x)
+        H_o, g_o = vi_ba._normal_equations_torch(vi_window_as(w, torch.float64), x.double())
+        d = torch.sqrt(torch.diagonal(H_o))
+        ne_gap = max(ne_gap, float(((H - H_o).abs() / (d[:, None] * d[None, :])).max()),
+                     float(((g - g_o).abs() / (d * (g_o / d).abs().max())).max()))
+        before = launch_counts()
+        got = vi_ba.local_inertial_ba(m, n_iters=VI_ITERS, **kw)
+        made = [launch_counts()[k] - before[k] for k in ("vi_eval", "vi_step")]
+        if made != [VI_ITERS, VI_ITERS]:
+            raise AssertionError(f"a window of {C} made {made} launches")
+        again = vi_ba.local_inertial_ba(m, n_iters=VI_ITERS, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"two runs of a window of {C} differ")
+        with torch_vi_path():
+            want = vi_ba.local_inertial_ba(m, n_iters=VI_ITERS, **kw)
+        win_gap = max(win_gap, *(max_err(a, b) / tol for a, b, tol in
+                                 zip(got, want, VI_WINDOW_TOL)))
+    if ne_gap > VI_NE_TOL or win_gap > 1.0:
+        raise AssertionError(f"VI kernels off their oracle or the torch path: normal "
+                             f"equations {ne_gap}, windows {win_gap} of their limits")
+    log(f"[smoke] vi_eval + vi_step: H and g within {ne_gap:.3g} of the float64 oracle, "
+        f"windows of {VI_SHAPES} within {win_gap:.3g} of their limits from the torch path, "
+        f"repeats bit-equal")
+    return ne_gap, win_gap
+
+
+def vi_bytes(p, kernel: str) -> int:
+    """Bytes each VI kernel reads and writes once: vi_eval the packed
+    window and x in, the slots out; vi_step the slots, the keyframes and x
+    in, x and the states out."""
+    size = lambda t: t.numel() * t.element_size()   # noqa: E731
+    part = 8 * p.part_size
+    if kernel == "vi_eval":
+        return size(p.kf) + size(p.gap) + size(p.obs) + size(p.cst) + 4 * 15 * p.C + part
+    return part + size(p.kf) + size(p.cst) + 4 * 15 * p.C + 4 * (15 + 21) * p.C
+
+
+def time_vi(dev, C: int):
+    """Both VI kernels at C keyframes, as time_pose; `plain_ms` is the
+    torch path's evaluation (forward-mode Jacobian, J^T J, J^T r) and
+    step (solve_ex); `oracle_ms` the plain analytic version's evaluation;
+    `dense_solve` solve_ex on the assembled H, the alternative to the
+    in-kernel block-tridiagonal Cholesky."""
+    from orbslam3lib_tpu_torch.device import device_ms_per_launch
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    from orbslam3lib_tpu_torch.ops import cuda_vi
+    from orbslam3lib_tpu_torch.tracking.inertial_opt import jacobian_fwd
+    _, _, w = vi_inputs(dev, C)
+    p, x = cuda_vi.pack(w), vi_x(C, dev)
+    part = cuda_vi.vi_eval(p, x)
+    H, g = cuda_vi.normal_equations(p, x)
+    H32, g32 = H.float(), g.float()
+    eye = torch.eye(15 * C, device=dev)
+
+    def plain_eval():
+        r, J, _ = jacobian_fwd(lambda y: vi_ba._residuals(w, y), x)
+        return J.T @ J + 1e-5 * eye, J.T @ r
+
+    runs = {"vi_eval": (lambda: cuda_vi.vi_eval(p, x), plain_eval),
+            "vi_step": (lambda: cuda_vi.vi_step(p, part, x),
+                        lambda: x - torch.linalg.solve_ex(H32, g32)[0])}
+    out = {}
+    for name, (fn, plain) in runs.items():
+        t = {"ms": device_ms_per_launch(fn, N_TIMED, graph=True),
+             "loop_ms": device_ms_per_launch(fn, N_TIMED),
+             "call_ms": call_ms(fn),
+             "plain_ms": device_ms_per_launch(plain, 5, 1)}
+        t["bound_ms"], t["bound_by"] = bound(vi_bytes(p, name), 0)
+        out[name] = t
+    out["vi_eval"]["oracle_ms"] = device_ms_per_launch(
+        lambda: vi_ba._normal_equations_torch(w, x), 5, 1)
+    out["vi_step"]["dense_solve"] = {
+        "ms": device_ms_per_launch(lambda: torch.linalg.solve_ex(H32, g32), N_TIMED, graph=True),
+        "call_ms": call_ms(lambda: torch.linalg.solve_ex(H32, g32))}
+    return out
+
+
+def vi_window_cost(dev, C: int):
+    """A whole window (set-up and VI_ITERS iterations) of C keyframes on
+    the kernels and on the torch path: ATen operations dispatched and host
+    ms (synchronised after each of 10; 2 on the torch path)."""
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    m, kw, _ = vi_inputs(dev, C)
+    out = {"C": C, "iters": VI_ITERS}
+    for path, where, n in (("kernels", contextlib.nullcontext, 10), ("torch", torch_vi_path, 2)):
+        with where():
+            with CountOps() as c:
+                vi_ba.local_inertial_ba(m, n_iters=VI_ITERS, **kw)
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            for _ in range(n):
+                vi_ba.local_inertial_ba(m, n_iters=VI_ITERS, **kw)
+                torch.cuda.synchronize()
+            out[path] = {"aten_ops": c.n, "host_ms": (time.perf_counter() - t0_) / n * 1e3}
+    return out
+
+
 def ptxas_report(log_text: str):
     """Per kernel (demangled-ish name): registers, shared memory bytes and
     spill stores/loads, from nvcc -Xptxas -v."""
-    out, name = {}, None
+    out, name, entry, own = {}, None, None, False
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
+            entry = m.group(1)
             name = next((k for k in ("fast_nms_levels_kernel", "knn2_kernel",
-                                     "pose_eval_kernel", "pose_step_kernel")
-                         if k in m.group(1)), m.group(1))
+                                     "pose_eval_kernel", "pose_step_kernel",
+                                     "vi_eval_kernel", "vi_step_kernel")
+                         if k in entry), entry)
             out[name] = {}
             continue
         if name is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        # the spill line that follows a callee's properties (a non-inlined
+        # library routine) is not the kernel's
+        m = re.search(r"Function properties for (\S+)", line)
         if m:
+            own = m.group(1) == entry
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and own:
             out[name]["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
         m = re.search(r"Used (\d+) registers", line)
         if m:
@@ -1667,6 +1833,8 @@ def phase_imu(dev, imgs, ts, imu):
                                                      ref["bias_range"])),
         "I: kernel 1 once per frame": launches["fast_scores_nms"] == N_IMU,
         "I: kernel 2 launched": launches["knn_match_fused"] >= 1,
+        "I: every VI window evaluation by the kernels": st["vi_evals_torch"] == 0
+            and launches["vi_eval"] == launches["vi_step"] == st["vi_evals_fused"] > 0,
         "I: finite poses": len(centres) == N_IMU and bool(np.isfinite(centres).all()),
     }
     return checks, launches
@@ -1812,6 +1980,8 @@ def phase_imu_mono(dev, imgs, ts, imu):
             and bounded(rep.get("kf_bias_a"), IMU_MONO_BIAS_MAX[1]),
         "J: kernel 1 once per frame": launches["fast_scores_nms"] == N_IMU_MONO,
         "J: kernel 2 launched": launches["knn_match_fused"] >= 1,
+        "J: every VI window evaluation by the kernels": st["vi_evals_torch"] == 0
+            and launches["vi_eval"] == launches["vi_step"] == st["vi_evals_fused"] > 0,
         "J: finite poses": len(centres) > 0 and bool(np.isfinite(centres).all())
             and rep["nonfinite_frames"] == 0,
     }
@@ -2166,6 +2336,15 @@ def run(jobs, t_start) -> int:
                 + ", ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
                             for k, v in t.items()))
     log(f"[smoke] one solve on the kernels and on the torch path: {pose_solve}")
+    vi_gaps = check_vi(dev)
+    vi_t = {C: time_vi(dev, C) for C in VI_SHAPES}
+    vi_cost = {C: vi_window_cost(dev, C) for C in VI_SHAPES}
+    for C, by_kernel in vi_t.items():
+        for name, t in by_kernel.items():
+            log(f"[smoke] {name} (C = {C}, F = {VI_F}), ms: "
+                + ", ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+                            for k, v in t.items()))
+    log(f"[smoke] one window on the kernels and on the torch path: {vi_cost}")
 
     cfg = orbit_tracking_config(rig)
     img0 = torch.as_tensor(imgs[0], device=dev)
@@ -2366,6 +2545,9 @@ def run(jobs, t_start) -> int:
             # Kannala-Brandt camera keeps the pose solve's torch path
             if path == "kb8" and name.startswith("pose_"):
                 checks[f"{name} not launched on the {path} path"] = n == 0
+            elif name.startswith("vi_") and path not in ("I", "J"):
+                # the VI window runs only with an IMU
+                checks[f"{name} not launched on the {path} path"] = n == 0
             elif path not in ("N", "X"):
                 checks[f"{name} launched on the {path} path"] = n >= 1
     log(f"[smoke] rendering (in worker processes): radtan {render_d:.1f} s, kb8 "
@@ -2405,6 +2587,18 @@ def run(jobs, t_start) -> int:
          **pose_t[1200]["pose_step"], "library_ms": None, "ptxas": ptxas.get("pose_step_kernel"),
          "n512": pose_t[512]["pose_step"],
          "launches_by_path": {p: c["pose_step"] for p, c in by_path.items()}},
+        {"name": "vi_eval", "route": "cuda", "source": src + "vi_opt.cu",
+         "replaces": "orbslam3lib_tpu_torch/mapping/vi_ba.py (jacobian_fwd over _residuals)",
+         "launches": launches["vi_eval"], "max_rel_err": vi_gaps[0],
+         **vi_t[9]["vi_eval"], "library_ms": None, "ptxas": ptxas.get("vi_eval_kernel"),
+         "C24": vi_t[24]["vi_eval"], "window": vi_cost,
+         "launches_by_path": {p: c["vi_eval"] for p, c in by_path.items()}},
+        {"name": "vi_step", "route": "cuda", "source": src + "vi_opt.cu",
+         "replaces": "orbslam3lib_tpu_torch/mapping/vi_ba.py (J^T J + 1e-5 I, solve_ex)",
+         "launches": launches["vi_step"], "window_err_of_limit": vi_gaps[1],
+         **vi_t[9]["vi_step"], "library_ms": None, "ptxas": ptxas.get("vi_step_kernel"),
+         "C24": vi_t[24]["vi_step"],
+         "launches_by_path": {p: c["vi_step"] for p, c in by_path.items()}},
     ]}
     log(f"[smoke] total command time {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`) as one shared library.
 
 nvcc compiles the sources, which have a plain C interface and include no
-PyTorch header, one process per source, all started together, and links
-them into `build/orbslam3lib_tpu_torch/libkernels.so` at the root of the
-checkout, at first use; `ctypes` loads it. ptxas reports each kernel's
-registers, shared memory and spills (`-Xptxas -v`); the last build's report
-is kept in `BUILD_LOG`. A stamp file beside the library holds the SHA-256
-of the sources and the flags: the library is rebuilt when either changes. Nothing here runs at import time, so modules
-that import this one stay importable on a machine without nvcc or a card.
+PyTorch header (`csrc/lie.cuh` holds the Lie helpers two of them share),
+one process per source, all started together, and links them into
+`build/orbslam3lib_tpu_torch/libkernels.so` at the root of the checkout, at
+first use; `ctypes` loads it. ptxas reports each kernel's registers,
+shared memory and spills (`-Xptxas -v`); the last build's report is kept in
+`BUILD_LOG`. A stamp file beside the library holds the SHA-256 of the
+sources, the header and the flags: the library is rebuilt when any of them
+changes. Nothing here runs at import time, so modules that import this one
+stay importable on a machine without nvcc or a card.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "orbslam3lib_tpu_torch"
 LIB_PATH = BUILD_DIR / "libkernels.so"
-SOURCES = ("fast_nms.cu", "knn2.cu", "pose_opt.cu")
+SOURCES = ("fast_nms.cu", "knn2.cu", "pose_opt.cu", "vi_opt.cu")
+HEADERS = ("lie.cuh",)   # included by the sources: part of the stamp
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +39,8 @@ SIGNATURES = {
     "knn2_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     "pose_eval_launch": (_P,) * 8 + (_F, _I) + (_P,) * 5,
     "pose_step_launch": (_P,) * 10 + (_F, _I) + (_P,) * 3,
+    "vi_eval_launch": (_P,) * 5 + (_F, _F, _F, _I, _I) + (_P,) * 2,
+    "vi_step_launch": (_P,) * 4 + (_I, _I) + (_P,) * 8,
 }
 
 _lock = threading.Lock()
@@ -57,7 +62,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()

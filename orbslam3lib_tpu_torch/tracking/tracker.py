@@ -160,6 +160,7 @@ import torch
 from ..config import CameraConfig, SlamConfig
 from ..device import GraphedCall, get_device, on_device, to_device, to_host
 from ..mapping import local_mapping as lm_ops
+from ..mapping import vi_ba
 from ..mapping.local_mapping import _last_write
 from ..mapping.loop_closing import LoopCloser, MapMerger, mapper_step_fused
 from ..mapping.map_ba import inv_sigma2 as _inv_sigma2
@@ -171,7 +172,7 @@ from ..models import map_state as ms
 from ..models.atlas import Atlas, transform_map
 from ..models.vocabulary import (DEFAULT_VOCAB_PATH, bow_from_descriptors,
                                  load_vocabulary, train_vocabulary)
-from ..ops import cuda_pose
+from ..ops import cuda_pose, cuda_vi
 from ..ops.extractor import (Features, ThresholdController, extract_orb_mono,
                              extract_orb_stereo)
 from ..ops.pyramid import scale_factors_on
@@ -200,6 +201,17 @@ def _pose_evals():
     """The pose solve's evaluations made so far in this process, by the
     kernel and by the torch ops."""
     return cuda_pose.eval_launches, pose_opt.evals_torch
+
+
+# stats keys: the VI window's evaluations by its kernels and by the torch
+# path (`vi_ba`), in the order `_vi_evals` gives them
+VI_EVAL_KEYS = ("vi_evals_fused", "vi_evals_torch")
+
+
+def _vi_evals():
+    """The VI window's evaluations made so far in this process, by the
+    kernels and by the torch path."""
+    return cuda_vi.eval_launches, vi_ba.evals_torch
 
 
 def _local_map_mask(m: ms.MapState, prev_mp: torch.Tensor,
@@ -654,6 +666,7 @@ class Tracker:
                       "mapper_errors": 0, "n_gba_started": 0, "n_gba_merged": 0,
                       "n_gba_aborted": 0, "gba_errors": 0, "frames_skipped": 0,
                       "pose_evals_fused": 0, "pose_evals_torch": 0,
+                      "vi_evals_fused": 0, "vi_evals_torch": 0,
                       "local_ba_dropped": 0, "mapper_queue_max": 0}
         self.errors: List[str] = []   # tracebacks of the threads' caught failures
         self._th_far = (float(cfg.tracker.th_far_points)
@@ -1934,7 +1947,8 @@ class Tracker:
         """`local_inertial_ba` over the keyframes `sel` (padded to C) with
         the current bias as its start and the keyframes' stored velocities,
         written into the map; the bias estimate becomes the newest
-        keyframe's. Returns the result."""
+        keyframe's, and its evaluations count in `stats["vi_evals_*"]`.
+        Returns the result."""
         cfg = self.cfg
         ids = np.full(C, -1, np.int32)
         ids[:len(sel)] = sel[:C]
@@ -1944,12 +1958,15 @@ class Tracker:
         v_init = self.map.kf_v[torch.clamp(idsd, 0, self.map.max_kf - 1).long()]
         bg, ba = self.imu_bias
         R_bc, t_bc = self._tbc
+        before = _vi_evals()
         res = local_inertial_ba(
             self.map, idsd, fixedd, pres, pre_valid, bg, ba, self.cam_params, float(cfg.bf),
             cam_model=cfg.camera.model_id, n_iters=n_iters, n_levels=cfg.orb.n_levels,
             R_bc=R_bc, t_bc=t_bc, v_init=v_init,
             v_init_valid=torch.linalg.norm(v_init, dim=-1) > 1e-9,
             per_kf_bias=bool(cfg.ba.per_kf_bias))
+        for k, now, then in zip(VI_EVAL_KEYS, _vi_evals(), before):
+            self.stats[k] += now - then
         self.map = apply_vi_window(self.map, idsd, fixedd, res)
         self.imu_bias = (res.bg, res.ba) if res.bg.dim() == 1 else \
             (res.bg[len(sel) - 1], res.ba[len(sel) - 1])

@@ -11,8 +11,8 @@ write-back; the inertial solvers (and the per-frame solve replayed from a
 CUDA graph), the windowed VI-BA, `System("imu_mono")` (through its guard's abort on the
 corridor, and through a successful IMU initialisation on phase J's excited
 corridor) and the inertial map merge on the card against the CPU; the
-pose solve's two kernels against its torch path on the card (marker
-`cuda`; skipped without a card). Imports no JAX, so it runs on a
+pose solve's two kernels and the VI window's two kernels against their
+torch paths on the card (marker `cuda`; skipped without a card). Imports no JAX, so it runs on a
 machine with a card and no JAX:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -43,18 +43,22 @@ def _bits(rng, na, nb, masked):
     return a, b, av, bv
 
 
-POSE_EVALS = ("pose_evals_fused", "pose_evals_torch")
+# the stats that count evaluations by path: (by the kernels, by the torch ops)
+EVAL_PATHS = (("pose_evals_fused", "pose_evals_torch"), ("vi_evals_fused", "vi_evals_torch"))
 
 
 def assert_same_stats(card: dict, cpu: dict) -> None:
     """The same stats on the card and the CPU, but for which path made the
-    pose solve's evaluations: as many on both, on the CPU all by the torch
-    ops (on a pinhole card the kernels make them)."""
+    pose solve's and the VI window's evaluations: as many on both, on the
+    CPU all by the torch ops (on a pinhole card the kernels make them)."""
+    paths = {k for pair in EVAL_PATHS for k in pair}
+
     def strip(st):
-        return {k: v for k, v in st.items() if k not in POSE_EVALS}
+        return {k: v for k, v in st.items() if k not in paths}
     assert strip(card) == strip(cpu)
-    assert sum(card[k] for k in POSE_EVALS) == sum(cpu[k] for k in POSE_EVALS)
-    assert cpu["pose_evals_fused"] == 0
+    for fused, plain in EVAL_PATHS:
+        assert card[fused] + card[plain] == cpu[fused] + cpu[plain]
+        assert cpu[fused] == 0
 
 
 @pytest.fixture
@@ -1367,3 +1371,134 @@ def test_pose_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         cuda_pose.pose_step(R0, t0, r, J[:, :2], chi2, behind, o.inv_sigma2, ones, ones,
                             ones, 1e-3)
+
+
+# -- the VI window's kernels (csrc/vi_opt.cu) --
+
+def _vi_window(dev, C=9, F=1200, bf=33.0, seed=17, **kw):
+    """`torch_parity.vi_problem`'s window on `dev` (EuRoC's C = 9 and F =
+    1,200 by default; points enough that every slot observes one)."""
+    from torch_parity import vi_problem
+    return vi_problem(C=C, F=F, n_pts=max(256, 2 * F), bf=bf, seed=seed, device=dev, **kw)
+
+
+def _vi_x(C: int, dev, seed: int = 3):
+    """A seeded x: poses ~0.02, velocities ~0.05, biases ~1e-3, one
+    keyframe's rotation past the Lie series (theta ~ 0.45)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(C, 15)) * np.array([0.02] * 6 + [0.05] * 3 + [1e-3] * 6)
+    x[1, 3:6] = [0.3, -0.2, 0.25]
+    return torch.from_numpy(x.reshape(-1).astype(np.float32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,bf", [(9, 33.0), (24, 33.0), (9, 0.0)])
+def test_vi_eval_matches_its_oracle_on_card(cuda_device, C, bf):
+    """H and g as `vi_eval` and `vi_step` assemble them at a non-zero x
+    against `vi_ba._normal_equations_torch` in float64 on the same float32
+    inputs: each entry of H within 2e-5 of sqrt(H_ii H_jj), of g within
+    2e-5 of sqrt(H_ii) max_j |g_j| / sqrt(H_jj) (f32 rows, f64 sums); one
+    launch each."""
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    from orbslam3lib_tpu_torch.ops import cuda_vi
+    from torch_parity import vi_window_as
+    m, kw = _vi_window(cuda_device, C=C, bf=bf, no_imu=(3,))
+    w = vi_ba.window_problem(m, **kw)
+    x = _vi_x(C, cuda_device)
+    before = cuda_vi.eval_launches, cuda_vi.step_launches
+    H, g = cuda_vi.normal_equations(cuda_vi.pack(w), x)
+    torch.cuda.synchronize()
+    assert (cuda_vi.eval_launches, cuda_vi.step_launches) == (before[0] + 1, before[1] + 1)
+    H_o, g_o = vi_ba._normal_equations_torch(vi_window_as(w, torch.float64), x.double())
+    d = torch.sqrt(torch.diagonal(H_o))
+    gap_H = float(((H - H_o).abs() / (d[:, None] * d[None, :])).max())
+    gap_g = float(((g - g_o).abs() / (d * (g_o / d).abs().max())).max())
+    assert gap_H <= 2e-5 and gap_g <= 2e-5, (gap_H, gap_g)
+
+
+def _vi_solve(m, kw, n_iters=10, fused=True, monkeypatch=None):
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    if not fused:
+        monkeypatch.setattr(vi_ba, "_fused", lambda *a: False)
+    try:
+        return vi_ba.local_inertial_ba(m, n_iters=n_iters, **kw)
+    finally:
+        if not fused:
+            monkeypatch.undo()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,bf,case", [(9, 33.0, {}), (9, 0.0, {}), (24, 33.0, {}),
+                                       (9, 33.0, dict(pad=3, no_imu=(2,), fixed=(0, 4)))])
+def test_vi_window_kernels_match_torch_path_on_card(cuda_device, monkeypatch, C, bf, case):
+    """Whole windows (10 iterations) by the kernels against the torch path
+    (forward-mode AD, f32 LU) on the card: poses 1e-4, velocities 1e-3,
+    biases 1e-4 (test_local_inertial_ba_on_card_matches_cpu's bounds); one
+    `vi_eval` and one `vi_step` launch an iteration and no torch
+    evaluation; the fixed keyframes held."""
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    from orbslam3lib_tpu_torch.ops import cuda_vi
+    m, kw = _vi_window(cuda_device, C=C, bf=bf, **case)
+    before = cuda_vi.eval_launches, cuda_vi.step_launches, vi_ba.evals_torch
+    got = _vi_solve(m, kw)
+    torch.cuda.synchronize()
+    assert (cuda_vi.eval_launches - before[0], cuda_vi.step_launches - before[1],
+            vi_ba.evals_torch - before[2]) == (10, 10, 0)
+    want = _vi_solve(m, kw, fused=False, monkeypatch=monkeypatch)
+    assert vi_ba.evals_torch - before[2] == 10
+    for f, tol in (("kf_R", 1e-4), ("kf_t", 1e-4), ("v", 1e-3), ("bg", 1e-4), ("ba", 1e-4)):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0, atol=tol,
+                                   err_msg=f)
+    ids = kw["window_ids"].long()
+    for k in case.get("fixed", (0,)):     # held: their start, projected onto SO(3)
+        assert float((got.kf_R[k] - m.kf_R[ids[k]]).abs().max()) <= 1e-6
+        assert float((got.kf_t[k] - m.kf_t[ids[k]]).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_vi_window_kernels_repeat_and_keep_their_results(cuda_device):
+    """Two runs of one window are bit-equal; a result is not touched by a
+    later window's run (every output a tensor of its own call)."""
+    m, kw = _vi_window(cuda_device)
+    first = _vi_solve(m, kw)
+    kept = [x.clone() for x in first]
+    again = _vi_solve(m, kw)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    m2, kw2 = _vi_window(cuda_device, seed=29)
+    other = _vi_solve(m2, kw2)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, kept, other):
+        assert torch.equal(a, b) and a.data_ptr() != c.data_ptr()
+    ptrs = [x.data_ptr() for x in first]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+@pytest.mark.cuda
+def test_vi_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """CPU and float64 windows, the shared bias, too many keyframes and
+    misshapen x or slots raise before any launch."""
+    from orbslam3lib_tpu_torch.mapping import vi_ba
+    from orbslam3lib_tpu_torch.ops import cuda_vi
+    m, kw = _vi_window(cuda_device, C=6, F=128)
+    w = vi_ba.window_problem(m, **kw)
+    before = cuda_vi.eval_launches, cuda_vi.step_launches
+    m_cpu, kw_cpu = _vi_window("cpu", C=6, F=128)
+    m64, kw64 = _vi_window(cuda_device, C=6, F=128, dtype=torch.float64)
+    for bad in (vi_ba.window_problem(m_cpu, **kw_cpu), vi_ba.window_problem(m64, **kw64),
+                w._replace(per_kf_bias=False), w._replace(t0=w.t0[:, :2]),
+                w._replace(gap_ok=w.gap_ok[:-1])):
+        with pytest.raises(ValueError):
+            cuda_vi.pack(bad)
+    p = cuda_vi.pack(w)
+    x = torch.zeros(15 * 6, device=cuda_device)
+    for bad_x in (x[:-1], x.double(), x.cpu()):
+        with pytest.raises(ValueError):
+            cuda_vi.vi_eval(p, bad_x)
+    part = cuda_vi.vi_eval(p, x)
+    for bad_part in (part[:-1], part.float()):
+        with pytest.raises(ValueError):
+            cuda_vi.vi_step(p, bad_part, x)
+    assert (cuda_vi.eval_launches, cuda_vi.step_launches) == (before[0] + 1, before[1])

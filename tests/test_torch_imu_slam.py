@@ -107,6 +107,8 @@ def test_stereo_inertial_trackers_agree(corridor, fast_reference_brief):
     assert init[0] == init[1] < 39
     assert tt.stats["track_fail"] == jt.stats["track_fail"] == 0
     assert tt.stats["n_kf"] == jt.stats["n_kf"]
+    # the port's VI windows ran on the CPU's torch path
+    assert tt.stats["vi_evals_torch"] > 0 == tt.stats["vi_evals_fused"]
     assert len(tt._kf_preints) == len(jt._kf_preints)
     assert sorted(tt._gap_by_dst) == sorted(jt._gap_by_dst)
     assert tt.loop_closer is None and jt.loop_closer is None

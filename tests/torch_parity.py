@@ -487,7 +487,8 @@ def merge_ring_maps(thetas_a=(0.0, 0.4, 0.8, 1.2, 1.6),
     return build(thetas_a, ident), build(thetas_b, G), G, pts, descs
 
 
-def vi_window(C: int = 6, seed: int = 17, F: int = 128, n_pts: int = 256, gap: float = 0.1):
+def vi_window(C: int = 6, seed: int = 17, F: int = 128, n_pts: int = 256, gap: float = 0.1,
+              max_kf: int = 16, max_mp: int = 512):
     """tests/test_vi_ba.py's window built with numpy and the port only (no
     JAX): C keyframes on the corridor from t = 1 s, `gap` s apart, poses
     after the first perturbed by 0.03, exact landmarks in front of them and
@@ -506,7 +507,7 @@ def vi_window(C: int = 6, seed: int = 17, F: int = 128, n_pts: int = 256, gap: f
     pts = (centers.mean(0) + rng.uniform([-3, -2, -3], [3, 2, 3], size=(n_pts, 3))
            + np.array([0, 0, 6.0])).astype(np.float32)
     descs = rng.integers(0, 2, size=(n_pts, 256)).astype(np.int8)
-    m = tms.empty_map(max_kf=16, max_mp=512, n_feat=F)
+    m = tms.empty_map(max_kf=max_kf, max_mp=max_mp, n_feat=F)
     for i in range(C):
         R = R_cw[i].T.astype(np.float32)
         t = (-R @ centers[i]).astype(np.float32)
@@ -537,6 +538,86 @@ def vi_window(C: int = 6, seed: int = 17, F: int = 128, n_pts: int = 256, gap: f
         pres.append(timu.integrate(timu.empty_preintegrated(), g, a, d, 2.4e-3, 2.8e-2,
                                    1.9e-5, 3e-3))
     return arr, timu.Preintegrated.stack(pres)
+
+
+def vi_problem(C: int = 6, F: int = 128, n_pts: int = 256, seed: int = 17, bf: float = 33.0,
+               pad: int = 0, no_imu=(), fixed=(0,), device="cpu", dtype=None):
+    """`vi_window`'s window made to reach every term of the VI-BA's
+    residual: with bf > 0 every other observation is stereo (its depth from
+    the keyframe's pose), bf = 0 leaves mono rows only; 5% of the
+    observations 20 px off (Huber weights below 1), three landmarks behind
+    the first camera, a T_bc near EuRoC's (90 degrees about z, 6 cm lever),
+    incoming biases away from the preintegrations' linearisation point,
+    stored velocities on every other keyframe, `pad` padding slots (-1 ids,
+    gaps without data), the gaps `no_imu` without IMU data and the
+    keyframes `fixed` held. Returns (map, keyword arguments of
+    `vi_ba.local_inertial_ba` but `n_iters`), on `device` in `dtype` (the
+    map's float32 when None)."""
+    import torch
+    from orbslam3lib_tpu_torch.models import map_state as tms
+    from orbslam3lib_tpu_torch.tracking import imu as timu
+    from orbslam3lib_tpu_torch.utils import lie as tl
+    arr, pres = vi_window(C=C, seed=seed, F=F, n_pts=n_pts, max_kf=max(16, C),
+                          max_mp=max(512, 2 * n_pts))
+    rng = np.random.default_rng(seed + 1)
+    for i in range(C):
+        ok = arr["kf_feat_valid"][i] & (arr["kf_mp"][i] >= 0)
+        p_c = arr["mp_pos"][arr["kf_mp"][i].clip(0)] @ arr["kf_R"][i].T + arr["kf_t"][i]
+        if bf > 0:
+            arr["kf_depth"][i] = np.where(ok & (np.arange(F) % 2 == 0), p_c[:, 2], 0.0)
+        off = ok & (rng.random(F) < 0.05)
+        arr["kf_xy"][i][off] += 20.0
+    R0, t0 = arr["kf_R"][0], arr["kf_t"][0]
+    arr["mp_pos"][:3] = (np.array([[0.1, 0.0, -2.0], [-0.2, 0.1, -3.0], [0.0, 0.3, -0.02]])
+                         - t0) @ R0
+    f32 = dict(dtype=torch.float32)
+    R_bc = tl.so3_exp(torch.tensor([0.01, -0.02, 1.57], **f32))
+    t_bc = torch.tensor([0.06, -0.02, 0.01], **f32)
+    n = C + pad
+    ids = torch.full((n,), -1, dtype=torch.int32)
+    ids[:C] = torch.arange(C, dtype=torch.int32)
+    fixed_mask = torch.zeros(n, dtype=torch.bool)
+    fixed_mask[list(fixed)] = True
+    pre_valid = torch.zeros(n - 1, dtype=torch.bool)
+    pre_valid[:C - 1] = True
+    pre_valid[list(no_imu)] = False
+    if pad:
+        pres = timu.Preintegrated.stack([pres[i] for i in range(C - 1)]
+                                        + [timu.empty_preintegrated()] * pad)
+    v_init = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)) * 0.1
+    v_init[:, 2] += 0.8
+    v_init_valid = torch.arange(n) % 2 == 1
+    fdt = dtype or torch.float32
+
+    def put(x):
+        return x.to(device=device, dtype=fdt) if x.is_floating_point() else x.to(device)
+    m = tms.MapState(**{k: put(v) for k, v in vars(tms.from_numpy(arr)).items()})
+    pres = timu.Preintegrated(**{f: put(getattr(pres, f)) for f in timu.TENSOR_FIELDS},
+                              dt_host=pres.dt_host)
+    R_bc = put(R_bc)
+    if fdt != torch.float32:
+        # rotations made in float32 are off SO(3) by ~1e-7: in a wider
+        # dtype, project them, or the log map's derivative departs from
+        # Jr^-1 by that much
+        R_bc, pres.dR, m.kf_R = (tl.normalize_rotation(R) for R in (R_bc, pres.dR, m.kf_R))
+    kw = dict(window_ids=put(ids), fixed_mask=put(fixed_mask), pres=pres,
+              pre_valid=put(pre_valid), bg0=put(torch.tensor([0.002, -0.001, 0.003])),
+              ba0=put(torch.tensor([0.02, 0.01, -0.03])),
+              cam_params=put(torch.tensor([300.0, 300.0, 320.0, 200.0])), bf=bf,
+              R_bc=R_bc, t_bc=put(t_bc), v_init=put(v_init),
+              v_init_valid=put(v_init_valid), per_kf_bias=True)
+    return m, kw
+
+
+def vi_window_as(w, dtype):
+    """A `vi_ba.Window` with its float tensors (its preintegrations' too) in
+    `dtype`, the same values."""
+    import torch
+    from orbslam3lib_tpu_torch.tracking import imu as timu
+    pres = timu.Preintegrated(**{f: getattr(w.pres, f).to(dtype) for f in timu.TENSOR_FIELDS},
+                              dt_host=w.pres.dt_host)
+    return w._replace(pres=pres, **{f: v.to(dtype) for f, v in w._asdict().items()
+                                    if isinstance(v, torch.Tensor) and v.is_floating_point()})
 
 
 # a EuRoC stereo rig rectified to pinhole: fx, fy, cx, cy
